@@ -1,6 +1,6 @@
 """Color / 16-bit workflow end to end: MHTC containers over the plane stream.
 
-    python examples/color_pipeline.py          # on TPU (or CPU via interpret)
+    python examples/color_pipeline.py          # on a GPU (or CPU via interpret)
 
 The reference converts its RGB assets TO grayscale (CoreGraphics,
 ``HuffRenderFrame.m:93-127``); the MHTC wrapper is the beyond-reference path
@@ -20,9 +20,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
 
-import metalhuffman_tpu as mht
-from metalhuffman_tpu.models import CodecConfig, color
-from metalhuffman_tpu.utils import fixtures
+import metalhuffman as mht
+from metalhuffman.models import CodecConfig, color
+from metalhuffman.utils import fixtures
 
 
 def main():

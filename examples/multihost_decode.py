@@ -1,20 +1,20 @@
 """Multi-host sharded codec demo / test worker (decode AND encode).
 
-Run N processes (multi-host simulation on CPU, or one per TPU host on a pod):
+Run N processes (multi-host simulation on CPU, or one per GPU host):
 
     python examples/multihost_decode.py --coordinator localhost:9911 \
         --num-processes 2 --process-id {0,1} [--devices-per-host 4]
 
 Each process: joins the jax.distributed cluster, encodes the same synthetic
 frame (stands in for "the stream was broadcast"), builds the global mesh,
-decodes its block ranges, all-gathers the decoded blocks over DCN, and
-verifies bit-exactness. Then the ENCODE direction (round-5): per-host
-histograms reduced over DCN, stage-1 pack on the global mesh, per-host
-merges over addressable shards writing disjoint byte spans — asserted
-byte-identical to the host encoder. Exit code 0 on success.
+decodes its block ranges, all-gathers the decoded blocks across hosts, and
+verifies bit-exactness. Then the ENCODE direction: per-host histograms
+reduced across hosts, stage-1 pack on the global mesh, per-host merges over
+addressable shards writing disjoint byte spans — asserted byte-identical to
+the host encoder. Exit code 0 on success.
 
-On a real TPU pod slice, omit all arguments (auto-detected) and drop
---devices-per-host.
+``--devices-per-host N`` runs the process on N virtual CPU devices, so the
+simulation never claims a GPU another process holds.
 """
 
 from __future__ import annotations
@@ -44,9 +44,9 @@ def main():
     import jax
     import numpy as np
 
-    from metalhuffman_tpu.core import blocks, delta, encode_symbols
-    from metalhuffman_tpu.ops import decode_xla
-    from metalhuffman_tpu.parallel import multihost
+    from metalhuffman.core import blocks, delta, encode_symbols
+    from metalhuffman.ops import decode_xla
+    from metalhuffman.parallel import multihost
 
     pid, pcount = multihost.initialize(
         args.coordinator, args.num_processes, args.process_id
@@ -79,15 +79,15 @@ def main():
           f"({mesh.shape}) OK", flush=True)
 
     # ENCODE direction: the full distributed pipeline (per-host histogram
-    # -> DCN reduce, global-mesh stage-1 pack, per-host merges over
+    # -> cross-host reduce, global-mesh stage-1 pack, per-host merges over
     # addressable shards) must be byte-identical to the host encoder —
     # including a partial tail block and shards that straddle hosts
-    from metalhuffman_tpu import native
+    from metalhuffman import native
 
     data = delta.delta_encode_blocks(blk).ravel()
     data = np.concatenate([data, data[: 64 * 5 + 13]])  # uneven + tail
     enc_mh = multihost.encode_symbols_multihost(
-        data, mesh=mesh, interpret=True)
+        data, mesh=mesh)
     enc_host = native.encode_symbols(data, 64)
     if not (np.array_equal(enc_mh.code_bytes, enc_host.code_bytes)
             and np.array_equal(enc_mh.block_offsets, enc_host.block_offsets)

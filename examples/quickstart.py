@@ -1,6 +1,6 @@
 """Quickstart: the full API surface in one runnable script.
 
-    python examples/quickstart.py            # on TPU (or CPU via interpret)
+    python examples/quickstart.py            # on a GPU (or CPU via interpret)
 """
 
 from __future__ import annotations
@@ -13,9 +13,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
 
-import metalhuffman_tpu as mht
-from metalhuffman_tpu.models import CodecConfig, ImageCodec, frame_stream
-from metalhuffman_tpu.utils import debug, fixtures
+import metalhuffman as mht
+from metalhuffman.models import CodecConfig, ImageCodec, frame_stream
+from metalhuffman.utils import debug, fixtures
 
 
 def main():
@@ -24,7 +24,7 @@ def main():
     print(f"frame: {img.shape}, {img.size} bytes")
 
     # 2. one-call container round trip (CRC-verified)
-    cfg = CodecConfig(backend="pallas")  # auto-interprets off-TPU
+    cfg = CodecConfig(backend="pallas")  # interpreted when JAX runs on CPU
     blob = mht.encode_image(img, cfg)
     restored = mht.decode_image(blob, cfg)
     assert np.array_equal(restored, img)
@@ -55,7 +55,7 @@ def main():
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "frame.mht")
         open(path, "wb").write(blob)
-        from metalhuffman_tpu.core import container
+        from metalhuffman.core import container
 
         s2, h, w, bd, delta, crc = container.read_frame(open(path, "rb").read())
         print(f"read back: {h}x{w} block_dim={bd} delta={delta} crc={'yes' if crc else 'no'}")

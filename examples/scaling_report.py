@@ -1,16 +1,15 @@
-"""Multi-chip scaling report: sharded DECODE + ENCODE vs device count.
+"""Multi-device scaling report: sharded DECODE + ENCODE vs device count.
 
     python examples/scaling_report.py                 # all visible devices
     python examples/scaling_report.py --cpu-devices 8 # virtual CPU mesh
 
-Benchmarks the PRODUCTION path — the Pallas image-layout kernel under
-shard_map (``shard_decode.decode_tiles_images_sharded``), tile ranges
-sharded over the mesh, staged once per mesh size and timed with distinct
-inputs per iteration (bench.py methodology). On a real multi-chip TPU host
-this reports ICI scaling efficiency (BASELINE.md target: >= 80% linear);
-on CPU it runs the kernel in interpret mode as a functional demonstration
-(mechanics identical: contiguous tile-range sharding, replicated pair
-table).
+Benchmarks the production path — the decode kernel under shard_map
+(``shard_decode.decode_grid_sharded``), block rows sharded over the mesh,
+staged once per mesh size and timed with distinct inputs per iteration
+(bench.py methodology). On GPUs it reports the scaling efficiency over one
+device; on CPU it runs the kernel in interpret mode as a functional
+demonstration at a small size (mechanics identical: contiguous row-range
+sharding, replicated words and tables).
 """
 
 from __future__ import annotations
@@ -37,13 +36,9 @@ if _args.cpu_devices:
 import jax.numpy as jnp
 import numpy as np
 
-from metalhuffman_tpu.models import CodecConfig, frame_stream
-from metalhuffman_tpu.ops import decode_pallas
-from metalhuffman_tpu.parallel import mesh as mesh_mod, shard_decode
-
-
-def barrier(x) -> float:
-    return float(jnp.sum(x[..., :1, :1].astype(jnp.int32)))
+from metalhuffman.models import CodecConfig, frame_stream
+from metalhuffman.ops import decode_pallas
+from metalhuffman.parallel import mesh as mesh_mod, shard_decode
 
 
 def _frames(t, h, w):
@@ -58,62 +53,44 @@ def _frames(t, h, w):
 
 
 def main():
-    on_tpu = jax.default_backend() not in ("cpu", "gpu")
-    interpret = not on_tpu
-    if on_tpu:
+    on_gpu = not decode_pallas.interpret_mode()
+    if on_gpu:
         T, H, W = _args.frames, 1536, 2048
     else:
         T, H, W = 2, 64, 1024  # interpret mode: keep it small
-    cfg = CodecConfig(backend="pallas", interpret=interpret)
+    cfg = CodecConfig(backend="pallas")
     base_frames = _frames(T, H, W)
-    # two distinct staged batches, alternated in the timed loop (elision
-    # control per PERF.md; frame rotation keeps one canonical table)
+    # two distinct staged batches, alternated in the timed loop (frame
+    # rotation keeps one canonical table)
     variants = [base_frames, np.roll(base_frames, 1, axis=0)]
     streams = [frame_stream.encode_frames_shared(f, cfg) for f in variants]
-    plan = decode_pallas.image_plan_for(H, W, cfg.block_dim)
-    assert plan is not None, "report geometry must use the image-layout path"
     payload = base_frames.size
+    bw = W // cfg.block_dim
 
     n_all = len(jax.devices())
     counts = [n for n in (1, 2, 4, 8, 16, 32) if n <= n_all]
     base_gbps = None
     print(f"platform={jax.default_backend()} devices={n_all} "
-          f"payload={payload/1e6:.0f} MB frame={W}x{H} "
-          f"path=pallas-image-layout(g={plan.group_tiles})")
+          f"payload={payload/1e6:.0f} MB frame={W}x{H} path=decode-kernel")
     for n in counts:
         mesh = mesh_mod.make_mesh(n)
-        g = plan.group_tiles
-        staged = []
-        for s in streams:
-            meta, words, offsets, wpr = decode_pallas.prepare_stream(s)
-            offs_pad = decode_pallas.pad_offsets_grid(
-                jnp.asarray(offsets), T * plan.bh, plan.bw, plan.bw_pad)
-            rows, init, _ = decode_pallas.tile_layout_images(
-                jnp.asarray(words), offs_pad, wpr, plan.h2, group_tiles=g)
-            pad = (-rows.shape[0]) % (n * g)
-            if pad:
-                rows = jnp.pad(rows, ((0, pad), (0, 0), (0, 0), (0, 0)))
-                init = jnp.pad(init, ((0, pad), (0, 0), (0, 0)))
-            staged.append((rows, init, jnp.asarray(meta.pair_table),
-                           meta, wpr))
+        staged = [tuple(jnp.asarray(a)
+                        for a in decode_pallas.prepare_stream(s))
+                  for s in streams]
 
         def step(v):
-            rows, init, pair, meta, wpr = staged[v]
-            return shard_decode.decode_tiles_images_sharded(
-                rows, init, pair, mesh=mesh, width=wpr,
-                bounds=meta.bounds, adj_inc=meta.adj_inc, h2=plan.h2,
-                delta=cfg.delta, group_tiles=g, interpret=interpret)
+            return shard_decode.decode_grid_sharded(
+                *staged[v], mesh=mesh, grid_bw=bw, delta=cfg.delta)
 
         out = step(0)
-        got = frame_stream.frames_from_raw(
-            np.asarray(out), T, H, W, w_pad=plan.w_pad, bh=plan.bh)
+        got = frame_stream.frames_from_raw(np.asarray(out), T, H, W)
         ok = np.array_equal(got, base_frames)
-        barrier(step(1))
+        jax.block_until_ready(step(1))
         t0 = time.perf_counter()
         r = None
         for i in range(_args.iters):
             r = step(i % 2)
-        barrier(r)
+        jax.block_until_ready(r)
         dt = (time.perf_counter() - t0) / _args.iters
         gbps = payload / dt / 1e9
         if base_gbps is None:
@@ -124,15 +101,13 @@ def main():
         if not ok:
             sys.exit(1)
 
-    # ENCODE direction (round 5): the sharded stage-1 pack under
-    # shard_map + per-shard merges, byte-identical to the host encoder.
-    # Stage-1 device time is reported per mesh size; stage 2 is the
-    # multithreaded host merge (PERF.md "Sharded/multi-host encode
-    # components" gives the scaling shape min(N*kernel, M*cores*merge))
-    from metalhuffman_tpu import native
-    from metalhuffman_tpu.core import blocks as blocks_mod
-    from metalhuffman_tpu.core import delta as delta_mod
-    from metalhuffman_tpu.parallel import shard_encode
+    # ENCODE direction: the sharded stage-1 pack under shard_map +
+    # per-shard merges, byte-identical to the host encoder (stage 2 is the
+    # multithreaded host merge)
+    from metalhuffman import native
+    from metalhuffman.core import blocks as blocks_mod
+    from metalhuffman.core import delta as delta_mod
+    from metalhuffman.parallel import shard_encode
 
     blk = np.concatenate([blocks_mod.image_to_blocks(f)
                           for f in base_frames])
@@ -142,8 +117,7 @@ def main():
     for n in counts:
         mesh = mesh_mod.make_mesh(n)
         t0 = time.perf_counter()
-        enc = shard_encode.encode_symbols_sharded(
-            syms, mesh=mesh, interpret=interpret)
+        enc = shard_encode.encode_symbols_sharded(syms, mesh=mesh)
         dt = time.perf_counter() - t0
         ok = (np.array_equal(enc.code_bytes, ref.code_bytes)
               and np.array_equal(enc.block_offsets, ref.block_offsets))

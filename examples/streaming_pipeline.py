@@ -30,10 +30,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
 
-from metalhuffman_tpu.models import (CodecConfig, ColorStreamingEncoder,
+from metalhuffman.models import (CodecConfig, ColorStreamingEncoder,
                                      StreamingEncoder, frame_stream,
                                      temporal)
-from metalhuffman_tpu.utils import fixtures
+from metalhuffman.utils import fixtures
 
 
 def camera(n, img):
@@ -79,7 +79,7 @@ def main():
           f"{len(segs)} chunks, bit-exact, chained CRC == recorded CRC")
 
     # 3. the same loop for color: MHTC wraps a streamed inner MHV2
-    from metalhuffman_tpu.models import color
+    from metalhuffman.models import color
 
     cframes = np.stack([np.stack([f, np.roll(f, 9, 1), np.roll(f, 21, 0)],
                                  axis=-1)
@@ -118,7 +118,7 @@ def main():
     import tempfile
     from pathlib import Path
 
-    from metalhuffman_tpu.models import TemporalStreamingEncoder
+    from metalhuffman.models import TemporalStreamingEncoder
 
     cap = Path(tempfile.mkdtemp()) / "capture.mhvt"
     scfg = CodecConfig(backend="native", temporal=True, keyint=3,

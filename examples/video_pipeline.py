@@ -1,6 +1,6 @@
 """Video workflow end to end: encode -> stream-decode -> random access -> verify.
 
-    python examples/video_pipeline.py          # on TPU (or CPU via interpret)
+    python examples/video_pipeline.py          # on a GPU (or CPU via interpret)
 
 Walks the production video surface: shared-table batch encode with the
 delta2d precoder, pipelined streaming decode (staging of batch t+1 overlaps
@@ -17,9 +17,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
 
-import metalhuffman_tpu as mht
-from metalhuffman_tpu.models import CodecConfig, frame_stream
-from metalhuffman_tpu.utils import fixtures
+import metalhuffman as mht
+from metalhuffman.models import CodecConfig, frame_stream
+from metalhuffman.utils import fixtures
 
 
 def main():
@@ -31,7 +31,7 @@ def main():
 
     # 2. encode with the 2-D predictor (5-15% smaller on photos, decoded at
     #    full speed — the kernel reconstructs it in registers)
-    cfg = CodecConfig(backend="pallas", delta2d=True)  # auto-interprets off-TPU
+    cfg = CodecConfig(backend="pallas", delta2d=True)  # interpreted on CPU
     blob = mht.encode_video(frames, cfg)
     print(f"MHTV: {len(blob)} bytes ({len(blob)/frames.size:.1%} of raw), "
           f"mode=delta2d, CRC recorded")
@@ -67,7 +67,7 @@ def main():
     #    a pan, so frame differencing alone would LOSE — the per-frame
     #    motion vector cancels the pan and --best style measurement keeps
     #    whichever coding is smallest (here: temporal+motion)
-    from metalhuffman_tpu.models import temporal
+    from metalhuffman.models import temporal
 
     tblob, kind, _used = temporal.encode_video_best(
         frames, CodecConfig(**{**cfg.__dict__, "temporal": True,
@@ -88,7 +88,7 @@ def main():
 
     # 9. lossless container surgery: cut frames [1, 5) and splice — no
     #    re-encode, CRCs combine algebraically
-    from metalhuffman_tpu.models import surgery
+    from metalhuffman.models import surgery
 
     part = surgery.extract_video(blob, 1, 5)
     assert np.array_equal(mht.decode_video(part, cfg), frames[1:5])

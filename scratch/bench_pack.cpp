@@ -7,7 +7,7 @@
 // the op count with a 64K PAIR table (two symbols per lookup) measured
 // ~1.18 GB/s single-core; that variant is now the production packer in
 // mht_codec.cpp (pack_chunk_or). This harness times the shipped encoder.
-#include "../metalhuffman_tpu/native/src/mht_codec.cpp"
+#include "../metalhuffman/native/src/mht_codec.cpp"
 #include <chrono>
 #include <cstdio>
 #include <random>

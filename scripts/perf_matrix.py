@@ -4,9 +4,9 @@
 
 Measures decode throughput (bit-exact gated, distinct inputs per timed
 iteration — bench.py methodology) for:
-  - Pallas TPU kernel, shared-table video batch (the headline path), at
+  - the decode kernel, shared-table video batch (the headline path), at
     2048x1536 (the reference geometry) and 1920x1080 (the common video
-    geometry, exercising the ImagePlan column-padded image layout)
+    geometry)
   - multithreaded C++ host decoder
 on synthetic photo-like content and the committed real-photo asset.
 Prints a markdown table to stdout.
@@ -34,11 +34,12 @@ def main():
     import jax
 
     import bench
-    from metalhuffman_tpu import native
-    from metalhuffman_tpu.cli import _enable_compile_cache
-    from metalhuffman_tpu.models import CodecConfig, frame_stream
+    from metalhuffman import native
+    from metalhuffman.models import CodecConfig, frame_stream
+    from metalhuffman.utils import runtime
 
-    _enable_compile_cache()
+    runtime.require_gpu()
+    runtime.configure_compile_cache()
 
     rows = []
     for h, w in ((1536, 2048), (1080, 1920)):
@@ -47,14 +48,14 @@ def main():
                 h, w, args.frames, args.iters, verbose=False,
                 content=content, variants=args.variants,
             )
-            rows.append((f"{w}x{h}", content, "Pallas TPU kernel", gbps))
+            rows.append((f"{w}x{h}", content, "decode kernel", gbps))
 
     # delta2d precoder (mode 3): in-register reconstruction — expect parity
     gbps, _reps, _spread = bench.run_video(
         1536, 2048, args.frames, args.iters, verbose=False,
         content="photo", variants=args.variants, precoder="delta2d",
     )
-    rows.append(("2048x1536", "photo", "Pallas kernel, delta2d", gbps))
+    rows.append(("2048x1536", "photo", "decode kernel, delta2d", gbps))
 
     # MHVT temporal reconstruction chains (decode + on-device fold), photo
     # content at the reference geometry — run_temporal is the plain-gray

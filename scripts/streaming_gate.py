@@ -1,10 +1,9 @@
 """One-command re-certification of the STREAMING family, end to end.
 
-Round-4 verdict weak item 5 / next-step 8: the "bit-exact on real TPU"
-claim for the streaming family lived in an archaeological sweep script.
-This gate makes it repeatable:
+The streaming family's bit-exactness on the device path is certified by
+this one repeatable gate:
 
-    python scripts/streaming_gate.py              # real TPU (pallas)
+    python scripts/streaming_gate.py              # GPU (the decode kernel)
     python scripts/streaming_gate.py --interpret  # CPU (CI / default tier)
 
 It drives the PRODUCT surface (the CLI, one subprocess per command — the
@@ -25,9 +24,9 @@ and asserts bit-exactness against the source frames:
      byte-identical to the one-shot capture
 
 Prints one PASS line per stage and exits non-zero on the first failure.
-Runs from anywhere; never starts two TPU processes at once (commands run
-serially). ~2 min on CPU; on the real chip expect several minutes of
-fresh-process Pallas compiles (cached after the first run).
+First it asks the CLI which JAX platform it runs on and fails unless that
+is the CPU with ``--interpret`` and the GPU without. Runs from anywhere;
+never starts two device processes at once (commands run serially).
 """
 
 import argparse
@@ -54,8 +53,16 @@ def main() -> int:
 
     dev = ["--interpret"] if args.interpret else []
     h, w, t = args.height, args.width, args.frames
+    plat = subprocess.run(
+        [sys.executable, "-m", "metalhuffman", "platform", *dev],
+        capture_output=True, text=True, cwd=str(REPO)).stdout.split()
+    want = "cpu" if args.interpret else "gpu"
+    if not plat or plat[0] != want:
+        print(f"FAIL: the CLI runs on {plat[:2]}, expected {want}")
+        return 1
+    print(f"PASS  CLI platform: {' '.join(plat)}", flush=True)
 
-    from metalhuffman_tpu.utils import fixtures
+    from metalhuffman.utils import fixtures
 
     img = fixtures.render_frame("bridge")
     img = np.tile(img, ((h - 1) // img.shape[0] + 1,
@@ -73,7 +80,7 @@ def main() -> int:
 
     def run(*a, expect_fail=False):
         t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", "metalhuffman_tpu", *a],
+        r = subprocess.run([sys.executable, "-m", "metalhuffman", *a],
                            capture_output=True, text=True, cwd=str(REPO))
         dt = time.perf_counter() - t0
         if expect_fail:
@@ -107,7 +114,7 @@ def main() -> int:
 
     # 2) corruption must fail the streamed chain
     bad = bytearray((tmp / "g.mhv2").read_bytes())
-    from metalhuffman_tpu.models import frame_stream
+    from metalhuffman.models import frame_stream
 
     bad[frame_stream._trailer_offset(bytes(bad))] ^= 0x5A
     (tmp / "g_bad.mhv2").write_bytes(bytes(bad))
@@ -186,7 +193,7 @@ def main() -> int:
     check(tmp / "resume_out.npy", gray, "resumed capture streamed decode")
 
     print("\nSTREAMING GATE: ALL PASS "
-          f"({'interpret/CPU' if args.interpret else 'real device'})")
+          f"({'interpret/CPU' if args.interpret else 'GPU'})")
     return 0
 
 

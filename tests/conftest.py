@@ -1,17 +1,22 @@
 """Test configuration: force JAX onto a virtual 8-device CPU mesh.
 
-Multi-chip hardware is not available in CI; sharding tests run on
-``xla_force_host_platform_device_count=8`` CPU devices (the driver separately
-dry-run-compiles the multi-chip path via ``__graft_entry__.dryrun_multichip``).
-This must run before the first ``import jax`` anywhere in the test session.
+No GPU is assumed: sharding tests run on
+``xla_force_host_platform_device_count=8`` CPU devices and the decode kernel
+runs in the Pallas interpreter. This must run before the first
+``import jax`` anywhere in the test session.
 
-Set ``MHT_TEST_ON_TPU=1`` to instead run the suite on whatever real device
-``JAX_PLATFORMS`` points at (single-chip; sharding tests will be skipped).
+Set ``MHT_TEST_ON_GPU=1`` to run on the GPU JAX finds instead
+(``MHT_TEST_ON_GPU=1 python -m pytest tests/ -m gpu`` runs the tests marked
+``gpu``; tests that need the 8-device mesh skip there). Whether a GPU or
+enough devices exist is decided per test in a fixture, never at import or
+collection time, so every worker collects the same tests.
 """
 
 import os
 
-if not os.environ.get("MHT_TEST_ON_TPU"):
+import pytest
+
+if not os.environ.get("MHT_TEST_ON_GPU"):
     os.environ["JAX_PLATFORMS"] = "cpu"
     flags = os.environ.get("XLA_FLAGS", "")
     if "xla_force_host_platform_device_count" not in flags:
@@ -24,18 +29,23 @@ if not os.environ.get("MHT_TEST_ON_TPU"):
 
     jax.config.update("jax_platforms", "cpu")
 
+#: test files whose tests need the 8-device mesh
+_MULTI_DEVICE_FILES = ("test_parallel.py", "test_pallas_sharded.py",
+                       "test_multihost.py", "test_frame_stream.py")
 
-def pytest_collection_modifyitems(config, items):
-    if os.environ.get("MHT_TEST_ON_TPU"):
-        import jax
-        import pytest
 
-        if len(jax.devices()) < 8:
-            skip = pytest.mark.skip(reason="needs 8 devices (CPU mesh mode)")
-            multi_device_files = (
-                "test_parallel.py", "test_pallas_sharded.py",
-                "test_multihost.py", "test_frame_stream.py",
-            )
-            for item in items:
-                if any(f in item.nodeid for f in multi_device_files):
-                    item.add_marker(skip)
+@pytest.fixture(autouse=True)
+def _device_requirements(request):
+    """Skip a ``gpu``-marked test without a GPU, and a mesh test with fewer
+    than 8 devices (only possible under ``MHT_TEST_ON_GPU``)."""
+    import jax
+
+    if request.node.get_closest_marker("gpu") is not None:
+        dev = jax.devices()[0]
+        if dev.platform != "gpu":
+            pytest.skip(f"needs a GPU (JAX runs on {dev.platform}); the "
+                        "decode kernel is compiled only for the GPU")
+    if (os.environ.get("MHT_TEST_ON_GPU")
+            and request.node.path.name in _MULTI_DEVICE_FILES
+            and len(jax.devices()) < 8):
+        pytest.skip("needs 8 devices (CPU mesh mode)")

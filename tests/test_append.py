@@ -23,9 +23,9 @@ import zlib
 import numpy as np
 import pytest
 
-from metalhuffman_tpu.models import (CodecConfig, color, frame_stream,
+from metalhuffman.models import (CodecConfig, color, frame_stream,
                                      surgery, temporal)
-from metalhuffman_tpu.models.stream_writer import (
+from metalhuffman.models.stream_writer import (
     ColorStreamingEncoder,
     MHTSStreamingEncoder,
     StreamingEncoder,
@@ -117,7 +117,7 @@ def test_append_validation(tmp_path):
         StreamingEncoder(p, 16, 16, NATIVE, append=True, frame_crcs=True)
     # appending to an MHTV (non-segmented) is refused with guidance
     mhtv = tmp_path / "x.mhtv"
-    from metalhuffman_tpu import encode_video
+    from metalhuffman import encode_video
 
     mhtv.write_bytes(encode_video(f, NATIVE))
     with pytest.raises(ValueError, match="resegment"):
@@ -282,7 +282,7 @@ def test_color_append_equals_concat(tmp_path):
 
 
 def test_cli_append_resume(tmp_path):
-    from metalhuffman_tpu import cli
+    from metalhuffman import cli
 
     f = _frames(10, 32, 32, seed=17, pan=4)
     np.save(tmp_path / "a1.npy", f[:6])
@@ -387,7 +387,7 @@ def test_mhts_append_delta_ness_must_match(tmp_path):
 
 
 def test_cli_append_mismatch_is_clean_error(tmp_path):
-    from metalhuffman_tpu import cli
+    from metalhuffman import cli
 
     f = _frames(4, 16, 16, seed=29)
     np.save(tmp_path / "f.npy", f)
@@ -506,7 +506,7 @@ def test_temporal_color_and_u16_append(tmp_path):
 
 
 def test_cli_color_temporal_append(tmp_path):
-    from metalhuffman_tpu import cli
+    from metalhuffman import cli
 
     rng = np.random.default_rng(39)
     col = (rng.integers(0, 60, (8, 16, 16, 3))).astype(np.uint8)

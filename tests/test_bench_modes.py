@@ -3,9 +3,8 @@
 bench.py gates every timed path against the NumPy oracle before timing;
 these tests run those gates at tiny geometry on the 8-device CPU mesh
 env (interpret-mode kernel), so a refactor that silently breaks a bench
-mode's fold chain fails here instead of on the real chip at round end.
-The geometry must satisfy ``image_plan_for`` (width >= 512 at 8x8 blocks,
-pad ratio <= 2) — run_temporal(_ext) require the image-layout kernel path.
+mode's fold chain fails here instead of on the GPU. ``bench.main`` itself
+refuses any platform but a GPU.
 """
 
 import sys
@@ -21,8 +20,8 @@ import bench  # noqa: E402
 @pytest.mark.parametrize("motion,inner,width", [
     (False, "color", 512),
     (False, "u16", 512),
-    (True, "gray", 512),   # padded geometry -> byte-image MC chain
-    (True, "gray", 1024),  # exact geometry -> packed-words MC fold
+    (True, "gray", 512),
+    (True, "gray", 1024),
     (True, "color", 512),
 ])
 def test_run_temporal_ext_bit_exact(motion, inner, width):
@@ -38,3 +37,11 @@ def test_run_temporal_plain_bit_exact():
     gbps, reps, _spread = bench.run_temporal(
         64, 512, 5, 2, verbose=False, variants=2, keyint=3)
     assert gbps > 0 and reps >= 1
+
+
+def test_bench_refuses_cpu(monkeypatch):
+    """A measurement path never falls back to the CPU (it would time the
+    Pallas interpreter): bench.main exits before measuring."""
+    monkeypatch.setattr(sys, "argv", ["bench.py", "--frames", "1"])
+    with pytest.raises(SystemExit, match="needs a GPU"):
+        bench.main()

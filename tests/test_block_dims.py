@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from metalhuffman_tpu.models import CodecConfig, ImageCodec
-from metalhuffman_tpu.ops import layout
+from metalhuffman.models import CodecConfig, ImageCodec
+from metalhuffman.ops import layout
 
 
 @pytest.mark.parametrize("block_dim", [2, 4, 16])
@@ -13,7 +13,7 @@ def test_roundtrip_block_dims(block_dim, backend):
     rng = np.random.default_rng(block_dim)
     img = rng.integers(0, 200, (64, 96), np.uint8)
     codec = ImageCodec(CodecConfig(
-        block_dim=block_dim, backend=backend, interpret=backend == "pallas"))
+        block_dim=block_dim, backend=backend))
     codec.roundtrip_verify(img)
 
 
@@ -29,15 +29,10 @@ def test_words_per_block_large_blocks():
 def test_pallas_rejects_non_multiple_of_4():
     import jax.numpy as jnp
 
-    from metalhuffman_tpu.ops import decode_pallas
+    from metalhuffman.ops import decode_pallas, decode_xla
 
-    meta = decode_pallas.canonical_meta(
-        np.array([8] * 256, np.uint8))
-    with pytest.raises(ValueError, match="multiple of 4"):
-        decode_pallas.decode_tiles(
-            jnp.zeros((1, 6, 8, 128), jnp.int32),
-            jnp.zeros((1, 8, 128), jnp.int32),
-            jnp.asarray(meta.pair_table),
-            width=6, bounds=meta.bounds, adj_inc=meta.adj_inc,
-            num_steps=9, interpret=True,
-        )
+    t1, t2 = decode_xla.prepare_tables(np.array([8] * 256, np.uint8))
+    with pytest.raises(ValueError, match="block_dim 3"):
+        decode_pallas.decode(
+            jnp.zeros(8, jnp.uint32), jnp.zeros(4, jnp.uint32),
+            jnp.asarray(t1), jnp.asarray(t2), block_dim=3)

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from metalhuffman_tpu import cli
-from metalhuffman_tpu.utils import fixtures, imageio
+from metalhuffman import cli
+from metalhuffman.utils import fixtures, imageio
 
 
 @pytest.fixture
@@ -66,7 +66,7 @@ def test_video_roundtrip_per_frame(tmp_path):
                      "--per-frame-tables", "--backend", "xla"]) == 0
     assert cli.main(["decode-video", str(mhts), str(outdir),
                      "--backend", "xla"]) == 0
-    from metalhuffman_tpu.utils import imageio
+    from metalhuffman.utils import imageio
 
     f0 = imageio.load_grayscale(outdir / "frame_00000.png")
     np.testing.assert_array_equal(f0, frames[0])
@@ -114,7 +114,7 @@ def test_video_zero_init_cli(tmp_path):
     out = tmp_path / "o.npy"
     assert cli.main(["encode-video", str(src), str(mhtv), "--zero-init",
                      "--backend", "pallas", "--interpret"]) == 0
-    from metalhuffman_tpu.models import frame_stream
+    from metalhuffman.models import frame_stream
 
     stream, *_ = frame_stream.read_shared(mhtv.read_bytes())
     assert stream.block_init is not None
@@ -133,7 +133,7 @@ def _rgb_img(h, w, seed=0):
 
 
 def test_color_image_cli(tmp_path, capsys):
-    from metalhuffman_tpu.utils import imageio
+    from metalhuffman.utils import imageio
 
     img = _rgb_img(24, 32)
     src = tmp_path / "in.png"
@@ -156,7 +156,7 @@ def test_color_image_cli(tmp_path, capsys):
 
 
 def test_color_video_cli(tmp_path, capsys):
-    from metalhuffman_tpu.utils import imageio
+    from metalhuffman.utils import imageio
 
     frames = np.stack([_rgb_img(16, 24, seed=i) for i in range(3)])
     src = tmp_path / "frames.npy"
@@ -223,7 +223,7 @@ def test_gray16_video_cli(tmp_path):
 
 
 def test_color_subgreen_and_best_cli(tmp_path, capsys):
-    from metalhuffman_tpu.utils import imageio
+    from metalhuffman.utils import imageio
 
     # luma-shared channels: sub-green should win and --best should find it
     rng = np.random.default_rng(17)
@@ -253,8 +253,8 @@ def test_color_subgreen_and_best_cli(tmp_path, capsys):
 
 
 def test_color_video_subgreen_cli(tmp_path):
-    from metalhuffman_tpu.models import color as color_mod
-    from metalhuffman_tpu.utils import imageio
+    from metalhuffman.models import color as color_mod
+    from metalhuffman.utils import imageio
 
     frames = np.stack([_rgb_img(16, 24, seed=i) for i in range(2)])
     src = tmp_path / "frames.npy"
@@ -293,7 +293,7 @@ def test_cli_flag_validation(tmp_path):
 
 
 def test_grayscale_best_cli(tmp_path, capsys):
-    from metalhuffman_tpu.utils import fixtures, imageio
+    from metalhuffman.utils import fixtures, imageio
 
     img = fixtures.render_frame("bridge")  # real photo: a precoder should win
     src = tmp_path / "in.png"
@@ -311,7 +311,7 @@ def test_grayscale_best_cli(tmp_path, capsys):
 
 
 def test_color_frame_native_backend_cli(tmp_path):
-    from metalhuffman_tpu.utils import imageio
+    from metalhuffman.utils import imageio
 
     frames = np.stack([_rgb_img(16, 24, seed=i) for i in range(2)])
     src = tmp_path / "frames.npy"

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from metalhuffman_tpu.models import CodecConfig, color, frame_stream
+from metalhuffman.models import CodecConfig, color, frame_stream
 
 
 def _rgb(h, w, seed=0):
@@ -20,7 +20,7 @@ def test_color_roundtrip(channels):
     img = _rgb(32, 48)[:, :, :3]
     if channels == 4:
         img = np.concatenate([img, np.full((32, 48, 1), 255, np.uint8)], axis=-1)
-    cfg = CodecConfig(backend="pallas", interpret=True)
+    cfg = CodecConfig(backend="pallas")
     blob = color.encode_color_to_bytes(img, cfg)
     assert blob[:4] == color.COLOR_MAGIC
     out = color.decode_color_from_bytes(blob, cfg)
@@ -38,7 +38,7 @@ def test_legacy_bare_mhtv_still_decodes():
     # encode_color_to_bytes once wrote a bare MHTV whose frame count was the
     # channel count; decode_color_from_bytes keeps reading that form
     img = _rgb(16, 24, seed=3)
-    cfg = CodecConfig(interpret=True)
+    cfg = CodecConfig()
     stream, c = color.encode_color(img, cfg)
     legacy = frame_stream.write_shared(stream, c, 16, 24, cfg)
     out = color.decode_color_from_bytes(legacy, cfg)
@@ -49,7 +49,7 @@ def test_color_video_roundtrip():
     rng = np.random.default_rng(7)
     frames = np.stack([_rgb(24, 32, seed=i) for i in range(3)])
     frames[1] ^= rng.integers(0, 4, frames[1].shape, np.uint8)
-    cfg = CodecConfig(interpret=True)
+    cfg = CodecConfig()
     blob = color.encode_color_video_to_bytes(frames, cfg)
     out = color.decode_color_video_from_bytes(blob, cfg)
     np.testing.assert_array_equal(out, frames)
@@ -57,7 +57,7 @@ def test_color_video_roundtrip():
 
 def test_color_video_frame_random_access():
     frames = np.stack([_rgb(24, 32, seed=i) for i in range(4)])
-    cfg = CodecConfig(interpret=True)
+    cfg = CodecConfig()
     blob = color.encode_color_video_to_bytes(frames, cfg)
     for n in (0, 2, 3):
         one = color.decode_color_frame(blob, n, cfg)
@@ -72,7 +72,7 @@ def test_color_frame_access_across_mhv2_segments():
     frames = np.stack([_rgb(16, 16, seed=i) for i in range(3)])
     t, h, w, c = frames.shape
     planes = frames.transpose(0, 3, 1, 2).reshape(t * c, h, w)
-    cfg = CodecConfig(interpret=True)
+    cfg = CodecConfig()
     bits_two_planes = 2 * h * w * frame_stream._SEG_BITS_PER_SYMBOL
     segs = frame_stream.encode_frames_segmented(
         planes, cfg, max_segment_bits=bits_two_planes)
@@ -88,7 +88,7 @@ def test_gray16_image_roundtrip():
     rng = np.random.default_rng(11)
     base = np.cumsum(rng.integers(-3, 4, (40, 48)), axis=1)
     img = (20000 + base * 7).astype(np.uint16)
-    cfg = CodecConfig(interpret=True)
+    cfg = CodecConfig()
     blob = color.encode_gray16_to_bytes(img, cfg)
     out = color.decode_gray16_from_bytes(blob, cfg)
     assert out.dtype == np.uint16 and out.shape == img.shape
@@ -98,7 +98,7 @@ def test_gray16_image_roundtrip():
 def test_gray16_video_roundtrip_and_frame():
     rng = np.random.default_rng(13)
     frames = rng.integers(0, 1 << 16, (3, 16, 24), np.uint16)
-    cfg = CodecConfig(interpret=True)
+    cfg = CodecConfig()
     blob = color.encode_gray16_to_bytes(frames, cfg)
     out = color.decode_gray16_from_bytes(blob, cfg)
     np.testing.assert_array_equal(out, frames)
@@ -109,7 +109,7 @@ def test_gray16_video_roundtrip_and_frame():
 
 def test_mhtc_kind_mismatch_errors():
     img = _rgb(16, 16)
-    cfg = CodecConfig(interpret=True)
+    cfg = CodecConfig()
     blob = color.encode_color_to_bytes(img, cfg)
     with pytest.raises(ValueError):
         color.decode_gray16_from_bytes(blob, cfg)
@@ -124,17 +124,17 @@ def test_mhtc_kind_mismatch_errors():
 
 def test_mhtc_crc_detects_corruption():
     img = _rgb(16, 16, seed=5)
-    blob = bytearray(color.encode_color_to_bytes(img, CodecConfig(interpret=True)))
+    blob = bytearray(color.encode_color_to_bytes(img, CodecConfig()))
     # flip a code byte: the inner MHTV tail is 4 CRC + 48 offset bytes
     # (12 blocks), so -62 lands inside the Huffman code stream
     blob[-62] ^= 0xFF
     with pytest.raises(ValueError):
-        color.decode_color_from_bytes(bytes(blob), CodecConfig(interpret=True))
+        color.decode_color_from_bytes(bytes(blob), CodecConfig())
 
 
 def test_describe():
     img = _rgb(8, 8)
-    cfg = CodecConfig(interpret=True)
+    cfg = CodecConfig()
     assert "3-channel" in color.describe(color.encode_color_to_bytes(img, cfg))
     g16 = color.encode_gray16_to_bytes(
         np.zeros((8, 8), np.uint16), cfg)
@@ -164,7 +164,7 @@ def _photo_like_rgb(h, w, seed=0):
 
 def test_subgreen_image_roundtrip_and_wins_on_photo():
     img = _photo_like_rgb(48, 64)
-    cfg = CodecConfig(interpret=True)
+    cfg = CodecConfig()
     ident = color.encode_color_to_bytes(img, cfg)
     sub = color.encode_color_to_bytes(img, cfg, colorspace=color.CS_SUBGREEN)
     np.testing.assert_array_equal(color.decode_color_from_bytes(sub, cfg), img)
@@ -177,7 +177,7 @@ def test_subgreen_image_roundtrip_and_wins_on_photo():
 
 def test_subgreen_video_roundtrip_and_frame_access():
     frames = np.stack([_photo_like_rgb(24, 32, seed=i) for i in range(3)])
-    cfg = CodecConfig(interpret=True)
+    cfg = CodecConfig()
     blob = color.encode_color_video_to_bytes(
         frames, cfg, colorspace=color.CS_SUBGREEN)
     np.testing.assert_array_equal(
@@ -188,7 +188,7 @@ def test_subgreen_video_roundtrip_and_frame_access():
 
 def test_encode_color_best_full_search_decodes():
     img = _photo_like_rgb(32, 32, seed=9)
-    cfg = CodecConfig(interpret=True)
+    cfg = CodecConfig()
     blob = color.encode_color_best(img, cfg)
     np.testing.assert_array_equal(color.decode_color_from_bytes(blob, cfg), img)
 
@@ -197,7 +197,7 @@ def test_native_backend_on_mhtc_paths():
     # review finding: MHTC decode surfaces must honor backend="native"
     # (multithreaded host C++), like every grayscale surface
     img = _photo_like_rgb(24, 32, seed=31)
-    enc = CodecConfig(interpret=True)
+    enc = CodecConfig()
     native_cfg = CodecConfig(backend="native")
     blob = color.encode_color_to_bytes(img, enc, colorspace=color.CS_SUBGREEN)
     np.testing.assert_array_equal(
@@ -218,7 +218,7 @@ def test_truncated_mhtc_header_is_valueerror():
 def test_gray16_plane_count_validation():
     # a kind=1 image wrapper over a 4-plane stream must not silently drop data
     frames = np.zeros((4, 8, 8), np.uint8)
-    cfg = CodecConfig(interpret=True)
+    cfg = CodecConfig()
     inner = color._encode_planes(frames, cfg)
     bad = color.wrap(inner, 2, color.LAYOUT_IMAGE, color.KIND_U16)
     with pytest.raises(ValueError):

@@ -10,7 +10,7 @@ delta roundtrip (``AAPLRenderer.m:477-497``), and encode->decode memcmp
 import numpy as np
 import pytest
 
-from metalhuffman_tpu.core import (
+from metalhuffman.core import (
     bitstream,
     blocks,
     canonical,
@@ -320,7 +320,7 @@ class TestContainer:
 
 
 def test_cluster_widths_complete_and_bounded():
-    from metalhuffman_tpu.core import canonical
+    from metalhuffman.core import canonical
 
     rng = np.random.default_rng(0)
     # photo-like geometric delta distribution: many distinct widths
@@ -346,8 +346,8 @@ def test_cluster_widths_complete_and_bounded():
 
 
 def test_encode_with_fixed_widths_roundtrip():
-    from metalhuffman_tpu import native
-    from metalhuffman_tpu.core import canonical
+    from metalhuffman import native
+    from metalhuffman.core import canonical
 
     rng = np.random.default_rng(1)
     syms = (rng.normal(0, 10, 64 * 64) % 256).astype(np.uint8)
@@ -360,9 +360,9 @@ def test_encode_with_fixed_widths_roundtrip():
     # the stream decodes through the standard device path too (the image
     # decoder reorders blocks into raster positions — compare against the
     # same reorder of the raw block payload)
-    from metalhuffman_tpu.core import blocks as blocks_mod
-    from metalhuffman_tpu.core.container import EncodedStream
-    from metalhuffman_tpu.models import CodecConfig, ImageCodec
+    from metalhuffman.core import blocks as blocks_mod
+    from metalhuffman.core.container import EncodedStream
+    from metalhuffman.models import CodecConfig, ImageCodec
 
     stream = EncodedStream(enc.num_symbols, enc.widths, enc.code_bytes,
                            enc.block_offsets)
@@ -381,7 +381,7 @@ def test_cluster_widths_fuzz():
     # many random shapes of frequency distribution: the result must always
     # be a complete prefix code with <= k distinct lengths covering every
     # present symbol
-    from metalhuffman_tpu.core import canonical
+    from metalhuffman.core import canonical
 
     rng = np.random.default_rng(42)
     for trial in range(30):
@@ -407,7 +407,7 @@ def test_cluster_widths_fuzz():
 def test_crc32_combine_matches_zlib():
     import zlib
 
-    from metalhuffman_tpu.core.crc import crc32_combine, crc32_concat
+    from metalhuffman.core.crc import crc32_combine, crc32_concat
 
     rng = np.random.default_rng(11)
     for _ in range(25):

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from metalhuffman_tpu.core import blocks, delta, encode_symbols
-from metalhuffman_tpu.ops import decode_xla
-from metalhuffman_tpu.utils import debug
+from metalhuffman.core import blocks, delta, encode_symbols
+from metalhuffman.ops import decode_xla
+from metalhuffman.utils import debug
 
 
 def test_trace_block_matches_decode():
@@ -28,8 +28,8 @@ def test_trace_block_matches_decode():
 def test_trace_block_values_are_true_pixels(mode):
     """trace_block honors the full precoder state (1-D/2-D/zero-init):
     the value column equals the actual decoded pixel for every mode."""
-    from metalhuffman_tpu.models import ImageCodec
-    from metalhuffman_tpu.models.image_codec import CodecConfig
+    from metalhuffman.models import ImageCodec
+    from metalhuffman.models.image_codec import CodecConfig
 
     rng = np.random.default_rng(99)
     img = np.cumsum(rng.normal(0, 5, (16, 24)), axis=1)
@@ -61,8 +61,8 @@ def test_dump_table_and_summary():
 @pytest.mark.slow
 def test_deep_fuzz_lengths_and_streams():
     """50 random frequency tables: native == NumPy lengths, streams, roundtrips."""
-    from metalhuffman_tpu import native
-    from metalhuffman_tpu.core import canonical, encode as encode_mod, tables
+    from metalhuffman import native
+    from metalhuffman.core import canonical, encode as encode_mod, tables
 
     rng = np.random.default_rng(777)
     for trial in range(50):
@@ -97,7 +97,7 @@ def test_deep_fuzz_lengths_and_streams():
 
 
 def decode_ref_decode(code_bytes, sym, wp, n):
-    from metalhuffman_tpu.core import decode_ref
+    from metalhuffman.core import decode_ref
 
     return decode_ref.decode_single_table(code_bytes, sym, wp, n)
 
@@ -105,7 +105,7 @@ def decode_ref_decode(code_bytes, sym, wp, n):
 @pytest.mark.parametrize("seed", range(4))
 def test_fuzz_pallas_interpret_roundtrip(seed):
     """Random distributions through the Pallas kernel (interpret mode)."""
-    from metalhuffman_tpu.ops import decode_pallas
+    from metalhuffman.ops import decode_pallas
 
     rng = np.random.default_rng(1000 + seed)
     alphabet = int(rng.integers(2, 257))
@@ -115,7 +115,7 @@ def test_fuzz_pallas_interpret_roundtrip(seed):
                       p=p).astype(np.uint8)
     enc = encode_symbols(data, block_size=64)
     out = np.asarray(
-        decode_pallas.decode_stream_pallas(enc, delta=False, interpret=True))
+        decode_pallas.decode_stream_pallas(enc, delta=False))
     np.testing.assert_array_equal(out.ravel(), data)
 
 
@@ -125,8 +125,8 @@ def test_fuzz_delta2d_images_roundtrip(seed):
 
     Covers the in-register kernel reconstruction (pallas) and the NumPy
     post-pass (native) against the same random geometry and statistics."""
-    from metalhuffman_tpu.models import ImageCodec
-    from metalhuffman_tpu.models.image_codec import CodecConfig
+    from metalhuffman.models import ImageCodec
+    from metalhuffman.models.image_codec import CodecConfig
 
     rng = np.random.default_rng(2000 + seed)
     h = int(rng.integers(9, 120))
@@ -134,7 +134,7 @@ def test_fuzz_delta2d_images_roundtrip(seed):
     smooth = np.cumsum(rng.normal(0, 4, (h, w)), axis=1)
     img = (smooth - smooth.min()).clip(0, 255).astype(np.uint8)
     for backend in ("native", "pallas"):
-        cfg = CodecConfig(backend=backend, delta2d=True, interpret=True,
+        cfg = CodecConfig(backend=backend, delta2d=True,
                           zero_init=bool(seed % 2))
         codec = ImageCodec(cfg)
         out = np.asarray(codec.decode(codec.encode(img), h, w))

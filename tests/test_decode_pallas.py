@@ -1,24 +1,25 @@
-"""Pallas decode kernel vs the XLA/NumPy oracles (interpret mode on CPU).
+"""Decode kernel vs the NumPy oracles (Pallas interpret mode on CPU).
 
-The TPU analog of the reference's CPU-oracle strategy (SURVEY.md section 4):
-``interpret=True`` is the "serial reference decoder" role; the same kernel
-runs compiled on hardware (exercised by bench.py / __graft_entry__).
+The kernel runs compiled on a GPU; here it runs in the Pallas interpreter
+(the "serial reference decoder" role of SURVEY.md section 4). The lowering
+tests lower the same kernel for CUDA without a GPU, so a kernel the Triton
+route cannot express fails here, not first on the card.
 """
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from metalhuffman_tpu.core import blocks, delta, encode_symbols
-from metalhuffman_tpu.ops import decode_pallas
+from metalhuffman.core import blocks, delta, encode_symbols
+from metalhuffman.ops import decode_pallas
 
 
 def _roundtrip(img, use_delta=True):
     blk = blocks.image_to_blocks(img)
     payload = delta.delta_encode_blocks(blk) if use_delta else blk
     enc = encode_symbols(payload.ravel(), block_size=64)
-    out = np.asarray(
-        decode_pallas.decode_stream_pallas(enc, delta=use_delta, interpret=True)
-    )
+    out = np.asarray(decode_pallas.decode_stream_pallas(enc, delta=use_delta))
     np.testing.assert_array_equal(out, blk)
 
 
@@ -42,29 +43,23 @@ def test_long_codes():
     data = rng.choice(np.arange(200), size=64 * 130, p=p / p.sum()).astype(np.uint8)
     enc = encode_symbols(data, block_size=64)
     assert enc.widths.max() > 8
-    out = np.asarray(
-        decode_pallas.decode_stream_pallas(enc, delta=False, interpret=True)
-    )
+    out = np.asarray(decode_pallas.decode_stream_pallas(enc, delta=False))
     np.testing.assert_array_equal(out.ravel(), data)
 
 
 def test_partial_tile_padding():
-    # 3 blocks << one 1024-block tile: padded lanes must decode harmlessly.
+    # 3 blocks << one program's lanes: padding lanes must never store.
     rng = np.random.default_rng(9)
     data = rng.integers(0, 256, 64 * 3, np.uint8)
     enc = encode_symbols(data, block_size=64)
-    out = np.asarray(
-        decode_pallas.decode_stream_pallas(enc, delta=False, interpret=True)
-    )
+    out = np.asarray(decode_pallas.decode_stream_pallas(enc, delta=False))
     assert out.shape == (3, 64)
     np.testing.assert_array_equal(out.ravel(), data)
 
 
 def test_bucket_edge_low_entropy():
-    # Regression: widths {1,2,2} with ~124-bit blocks used to land exactly on
-    # the 6-word row bucket while the last refill group's word index reached
-    # width-2, outside the kernel's word-select range — decoding positions
-    # 60..63 of unluckily-aligned blocks wrong (ADVICE.md round-1 high).
+    # Regression: widths {1,2,2} with ~124-bit blocks whose final symbols
+    # sit 120 bits deep — the window must refill across every word edge.
     rng = np.random.default_rng(42)
     nb = 50
     blks = []
@@ -81,59 +76,135 @@ def test_bucket_edge_low_entropy():
     data = np.concatenate(blks)
     enc = encode_symbols(data, block_size=64)
     assert sorted(enc.widths[enc.widths > 0].tolist()) == [1, 2, 2]
-    from metalhuffman_tpu.ops import layout
+    from metalhuffman.ops import layout
     total_bits = 8 * enc.code_bytes.size - 16
     assert layout.max_block_bits(enc.block_offsets, total_bits) == 124
-    out = np.asarray(
-        decode_pallas.decode_stream_pallas(enc, delta=False, interpret=True)
-    )
+    out = np.asarray(decode_pallas.decode_stream_pallas(enc, delta=False))
     np.testing.assert_array_equal(out.ravel(), data)
 
 
-def test_canonical_meta_intervals():
-    # Interval arithmetic must agree with the LUT for every 16-bit window.
-    from metalhuffman_tpu.core import canonical, tables
-
-    rng = np.random.default_rng(3)
-    data = rng.choice(
-        [0, 1, 2, 7, 90, 255], size=6000, p=[0.55, 0.2, 0.1, 0.08, 0.05, 0.02]
-    ).astype(np.uint8)
-    w = canonical.huffman_code_lengths(canonical.symbol_frequencies(data))
-    sym_plane, w_plane = tables.build_single_table(w)
-    meta = decode_pallas.canonical_meta(w)
-
-    windows = np.arange(65536, dtype=np.int64)
-    widths = np.ones(65536, dtype=np.int64)
-    adj = np.full(65536, meta.adj_inc[0], dtype=np.int64)
-    for L in range(2, 17):
-        m = windows >= meta.bounds[L - 1]
-        widths += m
-        adj += m * meta.adj_inc[L - 1]
-    idx = adj + (windows >> (16 - widths))
-    pair = meta.pair_table[0].astype(np.int64)
-    syms = np.where((idx & 1) == 1, pair[idx >> 1] >> 8, pair[idx >> 1]) & 0xFF
-    valid = w_plane > 0
-    np.testing.assert_array_equal(widths[valid], w_plane[valid])
-    np.testing.assert_array_equal(syms[valid], sym_plane[valid])
+# -- the dispatch rule --------------------------------------------------------
 
 
-@pytest.mark.parametrize("stride", [2, 4])
-def test_forced_stride_refill_scan(stride, monkeypatch):
-    """The compiled-mode stride-S refill scan, forced through interpret.
+def test_gpu_never_interprets():
+    assert decode_pallas.interpret_mode("gpu") is False
 
-    Production chooses stride 2 only when compiling for real hardware
-    (interpret keeps stride 1 — the unrolled scan's traced op count made
-    the whole suite ~3x slower); this test forces the stride branch so the
-    suite still covers it bit-exactly. Wide-table content makes every late
-    group take the scanned (lo < hi) path.
-    """
-    monkeypatch.setattr(decode_pallas, "_FORCE_STRIDE", stride)
-    rng = np.random.default_rng(17)
-    p = 0.6 ** np.arange(200)
-    data = rng.choice(np.arange(200), size=64 * 40, p=p / p.sum()).astype(
-        np.uint8)
-    enc = encode_symbols(data, block_size=64)
-    assert enc.widths.max() > 8  # wide scan ranges in the late groups
-    out = np.asarray(
-        decode_pallas.decode_stream_pallas(enc, delta=False, interpret=True))
-    np.testing.assert_array_equal(out.ravel(), data)
+
+def test_cpu_interprets():
+    assert decode_pallas.interpret_mode("cpu") is True
+    assert decode_pallas.interpret_mode() is True  # the suite runs on CPU
+
+
+@pytest.mark.parametrize("platform", ["METAL", "rocm", "neuron"])
+def test_unknown_platform_refused(platform):
+    with pytest.raises(RuntimeError, match="not supported"):
+        decode_pallas.interpret_mode(platform)
+
+
+# -- layout: the packed stream is read in place -------------------------------
+
+
+def _skewed_stream(n_blocks=40, seed=5):
+    rng = np.random.default_rng(seed)
+    p = 0.7 ** np.arange(60)
+    data = rng.choice(np.arange(60), size=64 * n_blocks,
+                      p=p / p.sum()).astype(np.uint8)
+    return data, encode_symbols(data, block_size=64)
+
+
+def test_no_row_staging():
+    """The kernel's operands are the packed words (plus 2 pad words) and
+    the offset index, not W-word rows per block."""
+    _, enc = _skewed_stream()
+    words, offsets, t1, t2 = decode_pallas.prepare_stream(enc)
+    assert words.size == -(-enc.code_bytes.size // 4) + 2
+    np.testing.assert_array_equal(offsets, enc.block_offsets)
+    assert t1.shape == (256,)
+
+
+def test_offsets_choose_blocks_in_any_order():
+    """Each lane starts at its own offset: a permuted offset index decodes
+    the same blocks in the permuted order (what ROI selections rely on)."""
+    data, enc = _skewed_stream()
+    words, offsets, t1, t2 = decode_pallas.prepare_stream(enc)
+    perm = np.random.default_rng(1).permutation(offsets.size)
+    out = decode_pallas.decode(words, offsets[perm], t1, t2, delta=False)
+    got = np.asarray(decode_pallas.blocks_from_words(out))
+    np.testing.assert_array_equal(got, data.reshape(-1, 64)[perm])
+
+
+# -- emission shapes ----------------------------------------------------------
+
+
+@pytest.mark.parametrize("block_dim", [2, 4, 8, 16])
+def test_block_emission_shape(block_dim):
+    bs = block_dim * block_dim
+    rng = np.random.default_rng(block_dim)
+    data = rng.integers(0, 40, bs * 37, np.uint8)
+    enc = encode_symbols(data, block_size=bs)
+    words, offsets, t1, t2 = decode_pallas.prepare_stream(enc)
+    out = decode_pallas.decode(words, offsets, t1, t2, block_dim=block_dim,
+                               delta=False)
+    assert out.shape == (37, bs // 4) and out.dtype == jnp.int32
+    got = np.asarray(decode_pallas.blocks_from_words(out, bs))
+    np.testing.assert_array_equal(got.ravel(), data)
+
+
+@pytest.mark.parametrize("block_dim,h,w", [(4, 12, 20), (8, 20, 40),
+                                           (16, 32, 48)])
+def test_image_emission_shape(block_dim, h, w):
+    """Image words cover the frame padded to whole blocks (no lane
+    padding); grid widths need not be powers of two."""
+    rng = np.random.default_rng(h)
+    img = rng.integers(0, 256, (h, w), np.uint8)
+    blk = blocks.image_to_blocks(img, block_dim)
+    enc = encode_symbols(
+        delta.delta_encode_blocks(blk).ravel(), block_size=block_dim ** 2)
+    words, offsets, t1, t2 = decode_pallas.prepare_stream(enc)
+    rows_pf, w_pad = decode_pallas.padded_geometry(h, w, block_dim)
+    out = decode_pallas.decode(words, offsets, t1, t2, block_dim=block_dim,
+                               grid_bw=w_pad // block_dim)
+    assert out.shape == (rows_pf, w_pad // 4)
+    got = np.asarray(decode_pallas.images_from_words(
+        out, 1, h, w, block_dim))[0]
+    np.testing.assert_array_equal(got, img)
+
+
+def test_image_emission_rejects_partial_rows():
+    _, enc = _skewed_stream(n_blocks=10)
+    words, offsets, t1, t2 = decode_pallas.prepare_stream(enc)
+    with pytest.raises(ValueError, match="whole block"):
+        decode_pallas.decode(words, offsets, t1, t2, grid_bw=3)
+    with pytest.raises(ValueError, match="block_dim % 4"):
+        decode_pallas.decode(words, offsets, t1, t2, block_dim=2,
+                             grid_bw=5)
+
+
+# -- lowering for the GPU -----------------------------------------------------
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(grid_bw=240),
+    dict(grid_bw=256, delta=False, delta2d=True, emit_end_bits=True),
+    dict(block_dim=2, emit_end_bits=True),
+    dict(block_dim=16, grid_bw=120),
+], ids=["blocks", "image", "delta2d-end", "bd2-end", "bd16-image"])
+def test_kernel_lowers_for_cuda(kw, monkeypatch):
+    """Lower the compiled (non-interpret) kernel to Triton IR for CUDA —
+    the step that needs no GPU — at the headline block count."""
+    from jax import export
+
+    monkeypatch.setattr(decode_pallas, "interpret_mode",
+                        lambda platform=None: False)
+    nb = 30 * 192 * 256 if kw.get("block_dim", 8) == 8 else 4 * 7680
+    args = (jax.ShapeDtypeStruct((200_000,), jnp.uint32),
+            jax.ShapeDtypeStruct((nb,), jnp.uint32),
+            jax.ShapeDtypeStruct((256,), jnp.int32),
+            jax.ShapeDtypeStruct((8192,), jnp.int32))
+    fn = jax.jit(lambda *a: decode_pallas.decode(*a, **kw))
+    exp = export.export(
+        fn, platforms=["cuda"], disabled_checks=[
+            export.DisabledSafetyCheck.custom_call("__gpu$xla.gpu.triton")],
+    )(*args)
+    assert "__gpu$xla.gpu.triton" in exp.mlir_module()

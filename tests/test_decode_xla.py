@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from metalhuffman_tpu.core import blocks, decode_ref, delta, encode_symbols, tables
-from metalhuffman_tpu.ops import decode_xla, layout
+from metalhuffman.core import blocks, decode_ref, delta, encode_symbols, tables
+from metalhuffman.ops import decode_xla, layout
 
 
 def _roundtrip_image(img: np.ndarray, use_delta: bool = True):

@@ -17,10 +17,10 @@ import dataclasses
 import numpy as np
 import pytest
 
-import metalhuffman_tpu as mht
-from metalhuffman_tpu.core import container, delta as delta_mod
-from metalhuffman_tpu.models import ImageCodec, frame_stream
-from metalhuffman_tpu.models.image_codec import CodecConfig
+import metalhuffman as mht
+from metalhuffman.core import container, delta as delta_mod
+from metalhuffman.models import ImageCodec, frame_stream
+from metalhuffman.models.image_codec import CodecConfig
 
 
 def _img(h, w, seed=0):
@@ -53,8 +53,7 @@ def test_transform_semantics():
 @pytest.mark.parametrize("zero_init", [False, True])
 def test_image_roundtrip_all_backends(backend, zero_init):
     img = _img(45, 67, seed=2)  # odd geometry: partial edge blocks
-    cfg = CodecConfig(backend=backend, delta2d=True, zero_init=zero_init,
-                      interpret=True)
+    cfg = CodecConfig(backend=backend, delta2d=True, zero_init=zero_init)
     codec = ImageCodec(cfg)
     stream = codec.encode(img)
     assert stream.predictor == "2d"
@@ -104,7 +103,7 @@ def test_video_mhtv_and_mhv2_roundtrip():
 
 def test_shared_pallas_checked_decode():
     frames = np.stack([_img(32, 48, seed=20 + i) for i in range(2)])
-    cfg = CodecConfig(backend="pallas", interpret=True, delta2d=True)
+    cfg = CodecConfig(backend="pallas", delta2d=True)
     stream = frame_stream.encode_frames_shared(frames, cfg)
     prep = frame_stream.prepare_shared(stream, 2, 32, 48, cfg, check=True)
     out, err = frame_stream.decode_shared_step_checked(prep, cfg)
@@ -113,18 +112,16 @@ def test_shared_pallas_checked_decode():
 
 
 def test_raw_strips_carry_in_kernel_reconstruction():
-    # delta2d reconstructs in kernel registers (decode_pallas._delta2d_row),
-    # so even the zero-post-op raw-strips production path returns final
-    # pixels — unlike zero-init, whose fold stays outside the kernel
+    # delta2d reconstructs in kernel registers, so even the zero-post-op
+    # raw-words production path returns final pixels — unlike zero-init,
+    # whose fold stays outside the kernel
     frames = np.stack([_img(64, 2048, seed=30)])
-    cfg = CodecConfig(backend="pallas", interpret=True, delta2d=True)
+    cfg = CodecConfig(backend="pallas", delta2d=True)
     stream = frame_stream.encode_frames_shared(frames, cfg)
     prep = frame_stream.prepare_shared(stream, 1, 64, 2048, cfg)
-    if not prep.h2:
-        pytest.skip("geometry did not take the image-layout path")
     raw = frame_stream.decode_shared_step(prep, cfg, raw=True)
-    out = frame_stream.frames_from_raw(raw, 1, 64, 2048,
-                                       w_pad=prep.w_pad, bh=prep.bh)
+    assert raw.shape == (1, 64, 512)
+    out = frame_stream.frames_from_raw(raw, 1, 64, 2048)
     np.testing.assert_array_equal(out, frames)
 
 
@@ -150,7 +147,7 @@ def test_decode_region():
 
 def test_streaming_decoder_uses_image_path():
     frames = np.stack([_img(64, 2048, seed=50)])
-    cfg = CodecConfig(backend="pallas", interpret=True, delta2d=True)
+    cfg = CodecConfig(backend="pallas", delta2d=True)
     stream = frame_stream.encode_frames_shared(frames, cfg)
     dec = frame_stream.StreamingDecoder(cfg)
     out = dec.result(dec.submit(stream, 1, 64, 2048))
@@ -173,8 +170,8 @@ def test_compression_gain_on_real_photo():
 
 
 def test_cli_encode_decode_verify(tmp_path, capsys):
-    from metalhuffman_tpu import cli
-    from metalhuffman_tpu.utils import imageio
+    from metalhuffman import cli
+    from metalhuffman.utils import imageio
 
     img = _img(32, 48, seed=7)
     src = tmp_path / "in.gray"
@@ -199,7 +196,7 @@ def test_cli_encode_decode_verify(tmp_path, capsys):
 
 
 def test_cli_video_delta2d(tmp_path):
-    from metalhuffman_tpu import cli
+    from metalhuffman import cli
 
     frames = np.stack([_img(16, 32, seed=60 + i) for i in range(2)])
     src = tmp_path / "f.npy"
@@ -214,7 +211,7 @@ def test_cli_video_delta2d(tmp_path):
 
 
 def test_cli_encode_video_best(tmp_path, capsys):
-    from metalhuffman_tpu import cli
+    from metalhuffman import cli
 
     # real photographic content: delta2d must win (PERF.md predictor study)
     from PIL import Image
@@ -244,7 +241,7 @@ def test_cli_encode_video_best(tmp_path, capsys):
 
 
 def test_color_delta2d():
-    from metalhuffman_tpu.models import color
+    from metalhuffman.models import color
 
     rng = np.random.default_rng(8)
     img = np.stack([_img(24, 32, seed=70 + i) for i in range(3)], axis=-1)

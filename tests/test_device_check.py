@@ -3,16 +3,16 @@
 The kernel surfaces each block's final bit position; comparing against the
 offset index flags corrupt/desynced blocks — the device analog of the
 reference's decode-verify assert (AAPLRenderer.m:1849-1876), tested here on
-the Pallas interpret path per VERDICT round-1 item 9.
+the kernel's interpret path and on the plain-XLA path.
 """
 
 import numpy as np
 import pytest
 
-from metalhuffman_tpu.core import encode_symbols
-from metalhuffman_tpu.core.container import EncodedStream
-from metalhuffman_tpu.models import CodecConfig, frame_stream
-from metalhuffman_tpu.ops import decode_pallas
+from metalhuffman.core import encode_symbols
+from metalhuffman.core.container import EncodedStream
+from metalhuffman.models import CodecConfig, frame_stream
+from metalhuffman.ops import decode_pallas
 
 
 def _stream(n_blocks=300, seed=3):
@@ -42,7 +42,7 @@ def _corrupt(stream: EncodedStream, block: int) -> EncodedStream:
 def test_clean_stream_no_errors():
     _, enc = _stream()
     blocks, err = decode_pallas.decode_stream_checked(
-        enc, delta=False, interpret=True)
+        enc, delta=False)
     assert not err.any()
 
 
@@ -50,7 +50,7 @@ def test_corrupt_block_flagged_tile_path():
     data, enc = _stream()
     bad = 137
     blocks, err = decode_pallas.decode_stream_checked(
-        _corrupt(enc, bad), delta=False, interpret=True)
+        _corrupt(enc, bad), delta=False)
     assert err[bad], "corrupted block must be flagged"
     # corruption is block-local: every other complete block still decodes
     others = np.ones(err.size, bool)
@@ -68,7 +68,7 @@ def test_truncated_stream_flagged():
     code[cut:] = 0
     _, err = decode_pallas.decode_stream_checked(
         EncodedStream(enc.num_symbols, enc.widths, code, enc.block_offsets),
-        delta=False, interpret=True)
+        delta=False)
     assert err[250:-1].any(), "zeroed tail must desync some blocks"
     assert not err[:249].any()
 
@@ -81,7 +81,7 @@ def test_shared_checked_image_path(shape):
     # whole stream fixed-width and trivially end-synced)
     frames = np.minimum(rng.integers(0, 256, (2, h, w), dtype=np.uint8),
                         rng.integers(0, 256, (2, h, w), dtype=np.uint8))
-    cfg = CodecConfig(backend="pallas", interpret=True, delta=False)
+    cfg = CodecConfig(backend="pallas", delta=False)
     stream = frame_stream.encode_frames_shared(frames, cfg)
     prep = frame_stream.prepare_shared(stream, 2, h, w, cfg, check=True)
     out, err = frame_stream.decode_shared_step_checked(prep, cfg)
@@ -99,10 +99,10 @@ def test_shared_checked_image_path(shape):
 
 
 def test_shared_checked_generic_path():
-    # block_dim=4 -> no ImagePlan -> generic packed-blocks path
+    # block_dim=4: one image word per block row
     rng = np.random.default_rng(12)
     frames = rng.integers(0, 256, (2, 32, 144), dtype=np.uint8)
-    cfg = CodecConfig(backend="pallas", interpret=True, block_dim=4)
+    cfg = CodecConfig(backend="pallas", block_dim=4)
     stream = frame_stream.encode_frames_shared(frames, cfg)
     prep = frame_stream.prepare_shared(stream, 2, 32, 144, cfg, check=True)
     out, err = frame_stream.decode_shared_step_checked(prep, cfg)
@@ -119,12 +119,11 @@ def test_shared_checked_generic_path():
 def test_raw_strips_checked():
     rng = np.random.default_rng(13)
     frames = rng.integers(0, 256, (2, 64, 1024), dtype=np.uint8)
-    cfg = CodecConfig(backend="pallas", interpret=True)
+    cfg = CodecConfig(backend="pallas")
     stream = frame_stream.encode_frames_shared(frames, cfg)
     prep = frame_stream.prepare_shared(stream, 2, 64, 1024, cfg, check=True)
     raw, err = frame_stream.decode_shared_step_checked(prep, cfg, raw=True)
-    got = frame_stream.frames_from_raw(
-        raw, 2, 64, 1024, w_pad=prep.w_pad, bh=prep.bh)
+    got = frame_stream.frames_from_raw(raw, 2, 64, 1024)
     assert np.array_equal(got, frames)
     assert not err.any()
 
@@ -135,7 +134,7 @@ def test_last_block_window_checked():
     rng = np.random.default_rng(14)
     frames = np.minimum(rng.integers(0, 256, (2, 16, 32), dtype=np.uint8),
                         rng.integers(0, 256, (2, 16, 32), dtype=np.uint8))
-    cfg = CodecConfig(backend="pallas", interpret=True, delta=False)
+    cfg = CodecConfig(backend="pallas", delta=False)
     stream = frame_stream.encode_frames_shared(frames, cfg)
     prep = frame_stream.prepare_shared(stream, 2, 16, 32, cfg, check=True)
     assert prep.last_window is not None
@@ -155,10 +154,10 @@ def test_last_block_window_image_path():
     rng = np.random.default_rng(15)
     frames = np.minimum(rng.integers(0, 256, (2, 16, 1024), dtype=np.uint8),
                         rng.integers(0, 256, (2, 16, 1024), dtype=np.uint8))
-    cfg = CodecConfig(backend="pallas", interpret=True, delta=False)
+    cfg = CodecConfig(backend="pallas", delta=False)
     stream = frame_stream.encode_frames_shared(frames, cfg)
     prep = frame_stream.prepare_shared(stream, 2, 16, 1024, cfg, check=True)
-    assert prep.h2 and prep.last_window is not None
+    assert prep.last_window is not None
     _, err = frame_stream.decode_shared_step_checked(prep, cfg)
     assert not err.any()
 
@@ -171,11 +170,35 @@ def test_last_block_window_image_path():
     assert err2[-1]
 
 
+@pytest.mark.parametrize("backend", ["pallas", "xla"])
+def test_checked_2x2_blocks_and_xla_path(backend):
+    """End bits from the kernel's block emission (2x2 blocks) and from the
+    plain-XLA decode flag the same corrupt block."""
+    rng = np.random.default_rng(16)
+    frames = np.minimum(rng.integers(0, 256, (2, 16, 24), dtype=np.uint8),
+                        rng.integers(0, 256, (2, 16, 24), dtype=np.uint8))
+    cfg = CodecConfig(backend=backend, block_dim=2, delta=False)
+    stream = frame_stream.encode_frames_shared(frames, cfg)
+    prep = frame_stream.prepare_shared(stream, 2, 16, 24, cfg, check=True)
+    out, err = frame_stream.decode_shared_step_checked(prep, cfg)
+    assert np.array_equal(np.asarray(out), frames) and not err.any()
+    bad = 60
+    code = stream.code_bytes.copy()
+    start = int(stream.block_offsets[bad]) // 8 + 1  # inside the 2x2 block
+    code[start : start + 8] = 0xFF
+    corrupt = EncodedStream(
+        stream.num_symbols, stream.widths, code, stream.block_offsets)
+    prep_bad = frame_stream.prepare_shared(corrupt, 2, 16, 24, cfg, check=True)
+    _, err2 = frame_stream.decode_shared_step_checked(prep_bad, cfg)
+    assert err2[bad]
+    assert not err2[: bad - 1].any()
+
+
 # -- salvage (round 3: best-effort serving decode) -------------------------------
 
 
 def _corrupt_video_blob(frames, cfg, block=5):
-    import metalhuffman_tpu as mh
+    import metalhuffman as mh
 
     blob = bytearray(mh.encode_video(frames, cfg))
     # locate the code bytes inside the MHTV container and wreck one block
@@ -192,7 +215,7 @@ def _corrupt_video_blob(frames, cfg, block=5):
 
 
 def test_cli_salvage(tmp_path, capsys):
-    from metalhuffman_tpu.cli import main
+    from metalhuffman.cli import main
 
     rng = np.random.default_rng(7)
     frames = np.minimum(
@@ -230,7 +253,7 @@ def test_salvage_blocks_inplace():
 
 
 def test_cli_salvage_segmented(tmp_path):
-    from metalhuffman_tpu.cli import main
+    from metalhuffman.cli import main
 
     rng = np.random.default_rng(9)
     frames = np.minimum(

@@ -1,16 +1,17 @@
 """Hybrid device encoder: differential vs the native/NumPy encoders.
 
-Stage-1 kernel runs in Pallas interpret mode on CPU here (the same code
-path compiles on TPU); stage-2 is the real C++ merge (or its NumPy
-fallback). Output must be byte-identical to ``native.encode_symbols``.
+Stage 1 (``encode_device.pack_rows``, plain jitted XLA) runs on the CPU
+here, the same program the GPU compiles; stage 2 is the real C++ merge (or
+its NumPy fallback). Output must be byte-identical to
+``native.encode_symbols``.
 """
 
 import numpy as np
 import pytest
 
-from metalhuffman_tpu import native
-from metalhuffman_tpu.core import bitstream, canonical
-from metalhuffman_tpu.ops import encode_pallas
+from metalhuffman import native
+from metalhuffman.core import bitstream, canonical
+from metalhuffman.ops import encode_device
 
 
 def _datasets():
@@ -34,7 +35,7 @@ def _datasets():
     "name,data", list(_datasets()), ids=[n for n, _ in _datasets()])
 def test_hybrid_matches_native(name, data):
     ref = native.encode_symbols(data, 64)
-    got = encode_pallas.encode_symbols_hybrid(data, 64, interpret=True)
+    got = encode_device.encode_symbols_hybrid(data, 64)
     assert got.num_symbols == ref.num_symbols
     np.testing.assert_array_equal(got.widths, ref.widths)
     np.testing.assert_array_equal(got.code_bytes, ref.code_bytes)
@@ -43,14 +44,14 @@ def test_hybrid_matches_native(name, data):
 
 def test_hybrid_rejects_non_64_block():
     with pytest.raises(ValueError):
-        encode_pallas.encode_symbols_hybrid(
+        encode_device.encode_symbols_hybrid(
             np.zeros(32, np.uint8), block_size=16)
 
 
 def test_hybrid_sub_block_input_falls_back():
     data = np.arange(40, dtype=np.uint8)  # < one block: host path
     ref = native.encode_symbols(data, 64)
-    got = encode_pallas.encode_symbols_hybrid(data, 64, interpret=True)
+    got = encode_device.encode_symbols_hybrid(data, 64)
     np.testing.assert_array_equal(got.code_bytes, ref.code_bytes)
 
 
@@ -77,14 +78,34 @@ def test_merge_rows_matches_encoder():
     assert total_bits == int(bits_pb.astype(np.int64).sum())
 
 
+def test_pack_rows_matches_reference_packer():
+    """Stage 1 alone: each row is the block's MSB-first packed bits (the
+    NumPy packer's words) and word ``wmax`` its bit count."""
+    rng = np.random.default_rng(19)
+    data = rng.choice(np.arange(30), size=64 * 21,
+                      p=(p := 0.75 ** np.arange(30)) / p.sum()).astype(np.uint8)
+    widths = native.code_lengths(np.bincount(data, minlength=256).astype(np.int64))
+    codes = canonical.canonical_codes(widths)
+    bits_pb = widths[data].reshape(-1, 64).astype(np.int64).sum(axis=1)
+    wmax = int(bits_pb.max()) // 32 + 2
+    lo, hi = encode_device.used_width_band(widths)
+    out = np.asarray(encode_device.pack_rows(
+        data.reshape(-1, 64), codes.astype(np.int32), widths.astype(np.int32),
+        wmax=wmax, min_w=lo, max_w=hi))
+    assert out.shape == (21, wmax + 1)
+    np.testing.assert_array_equal(out[:, wmax], bits_pb)
+    for b in range(21):
+        packed, _ = bitstream.pack_bits(data[b * 64:(b + 1) * 64], codes, widths)
+        ref = bitstream.bytes_to_be_words(packed, pad_words=wmax)[:wmax]
+        np.testing.assert_array_equal(out[b, :wmax].view(np.uint32), ref)
+
+
 def test_merge_rows_thread_count_invariance():
     rng = np.random.default_rng(13)
     data = rng.integers(0, 256, 64 * 400, np.uint8)
     ref = native.encode_symbols(data, 64)
-    got1 = encode_pallas.encode_symbols_hybrid(data, 64, n_threads=1,
-                                               interpret=True)
-    got8 = encode_pallas.encode_symbols_hybrid(data, 64, n_threads=8,
-                                               interpret=True)
+    got1 = encode_device.encode_symbols_hybrid(data, 64, n_threads=1)
+    got8 = encode_device.encode_symbols_hybrid(data, 64, n_threads=8)
     np.testing.assert_array_equal(got1.code_bytes, ref.code_bytes)
     np.testing.assert_array_equal(got8.code_bytes, ref.code_bytes)
 

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from metalhuffman_tpu import native
-from metalhuffman_tpu.core import encode
-from metalhuffman_tpu.ops import decode_xla, encode_xla
+from metalhuffman import native
+from metalhuffman.core import encode
+from metalhuffman.ops import decode_xla, encode_xla
 
 
 def _datasets():

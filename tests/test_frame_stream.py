@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from metalhuffman_tpu.core import blocks
-from metalhuffman_tpu.models import CodecConfig, frame_stream
-from metalhuffman_tpu.parallel import mesh as mesh_mod
+from metalhuffman.core import blocks
+from metalhuffman.models import CodecConfig, frame_stream
+from metalhuffman.parallel import mesh as mesh_mod
 
 
 def _frames(t, h, w, seed=0):
@@ -75,7 +75,7 @@ def test_segmented_encode_splits_and_roundtrips():
     # a tiny max_segment_bits forces multiple segments at whole-frame
     # boundaries; decode pipelines them back together bit-exact
     frames = _frames(5, 16, 32, seed=21)
-    cfg = CodecConfig(backend="pallas", interpret=True)
+    cfg = CodecConfig(backend="pallas")
     frame_bits_cap = 16 * 32 * 10  # ~1 frame per segment at 10 bits/sym
     segs = frame_stream.encode_frames_segmented(
         frames, cfg, max_segment_bits=frame_bits_cap)
@@ -104,7 +104,7 @@ def test_segmented_container_roundtrip():
 
 
 def test_segmented_single_segment_stays_mhtv():
-    import metalhuffman_tpu as mht
+    import metalhuffman as mht
 
     frames = _frames(3, 16, 16, seed=23)
     blob = mht.encode_video(frames, CodecConfig(backend="xla"))
@@ -164,7 +164,7 @@ def test_segmented_checked_decode():
     import dataclasses
 
     frames = _frames(4, 16, 32, seed=42)
-    cfg = CodecConfig(backend="pallas", interpret=True)
+    cfg = CodecConfig(backend="pallas")
     segs = frame_stream.encode_frames_segmented(
         frames, cfg, max_segment_bits=2 * 16 * 32 * 16)
     assert len(segs) >= 2
@@ -186,7 +186,7 @@ def test_segmented_checked_decode():
 def test_pipeline_keeps_two_segments_in_flight(monkeypatch):
     """The segment pipeline drains at depth 2 (not 3 — review finding)."""
     frames = _frames(6, 16, 32, seed=43)
-    cfg = CodecConfig(backend="pallas", interpret=True)
+    cfg = CodecConfig(backend="pallas")
     segs = frame_stream.encode_frames_segmented(
         frames, cfg, max_segment_bits=16 * 32 * 10)
     assert len(segs) == 6

@@ -35,8 +35,8 @@ packed MSB-first: EF D1 6F E8 00 00 00 0A AA AA AB 6D B6 EE FF.
 
 import numpy as np
 
-from metalhuffman_tpu.models import CodecConfig, ImageCodec
-from metalhuffman_tpu.utils import debug
+from metalhuffman.models import CodecConfig, ImageCodec
+from metalhuffman.utils import debug
 
 # the hand-chosen delta-symbol sequence (counts 0:32, 1:16, 2:8, 3:4, 255:4)
 DELTAS = ([3, 255, 2, 1, 0, 0, 1, 2, 255, 3, 1, 0]
@@ -77,7 +77,7 @@ def test_golden_canonical_table():
     widths[[0, 1, 2, 3, 255]] = [1, 2, 3, 4, 4]
     np.testing.assert_array_equal(stream.widths, widths)
     # canonical code patterns, straight from the hand assignment
-    from metalhuffman_tpu.core import canonical
+    from metalhuffman.core import canonical
 
     codes = canonical.canonical_codes(stream.widths)
     expect = {0: "0", 1: "10", 2: "110", 3: "1110", 255: "1111"}
@@ -91,7 +91,7 @@ def test_golden_packed_stream():
     stream = codec.encode(_image())
     assert stream.block_offsets.tolist() == [0]
     # 120 bits = 15 bytes exactly, + the decoder read-ahead pad
-    from metalhuffman_tpu.core import bitstream
+    from metalhuffman.core import bitstream
 
     assert stream.code_bytes.size == 15 + bitstream.READ_AHEAD_PAD_BYTES
     assert bytes(stream.code_bytes[:15]) == GOLDEN_CODE_BYTES

@@ -19,8 +19,8 @@ import zlib
 import numpy as np
 import pytest
 
-from metalhuffman_tpu.models import CodecConfig, frame_stream
-from metalhuffman_tpu.models.stream_writer import MHTSStreamingEncoder
+from metalhuffman.models import CodecConfig, frame_stream
+from metalhuffman.models.stream_writer import MHTSStreamingEncoder
 
 NATIVE = CodecConfig(backend="native")
 
@@ -81,7 +81,7 @@ def test_iter_stream_frames_matches_batch_and_verifies_crc():
 def test_iter_stream_frames_checked_interpret():
     frames = _frames(3, 16, 16, seed=5)
     blob = _batch_bytes(frames, NATIVE)
-    cfg = CodecConfig(backend="pallas", interpret=True)
+    cfg = CodecConfig(backend="pallas")
     outs = []
     for i, f, err, _crc in frame_stream.iter_stream_frames(blob, cfg,
                                                            check=True):
@@ -112,7 +112,7 @@ def test_no_torn_container(tmp_path, monkeypatch):
     enc = MHTSStreamingEncoder(p, 16, 16, NATIVE)
     enc.push(frames[:2])
 
-    from metalhuffman_tpu.models import image_codec
+    from metalhuffman.models import image_codec
 
     def boom(*_a, **_k):
         raise RuntimeError("simulated encode failure")
@@ -134,7 +134,7 @@ def test_no_torn_container(tmp_path, monkeypatch):
 
 
 def test_cli_mhts_streaming_roundtrip(tmp_path):
-    from metalhuffman_tpu import cli
+    from metalhuffman import cli
 
     frames = _frames(6, 24, 32, seed=11)
     src = tmp_path / "f.npy"
@@ -155,7 +155,7 @@ def test_cli_mhts_streaming_roundtrip(tmp_path):
     outdir = tmp_path / "pngs"
     assert cli.main(["decode-video", str(out), str(outdir), "--streaming",
                      "--backend", "native"]) == 0
-    from metalhuffman_tpu.utils import imageio
+    from metalhuffman.utils import imageio
 
     got = np.stack([imageio.load_grayscale(outdir / f"frame_{i:05d}.png")
                     for i in range(6)])
@@ -172,7 +172,7 @@ def test_cli_mhts_streaming_roundtrip(tmp_path):
 
 
 def test_cli_mhts_streaming_corruption(tmp_path):
-    from metalhuffman_tpu import cli
+    from metalhuffman import cli
 
     frames = _frames(4, 16, 16, seed=13)
     src = tmp_path / "f.npy"
@@ -226,7 +226,7 @@ def test_truncated_mhts_raises_clean_errors(tmp_path):
     """Round-5 review finding: every truncation of an MHTS must surface
     as ValueError (never struct.error) through the streaming readers,
     and the CLI must turn it into a clean exit."""
-    from metalhuffman_tpu import cli
+    from metalhuffman import cli
 
     frames = _frames(3, 16, 16, seed=21)
     blob = _batch_bytes(frames, NATIVE)
@@ -254,8 +254,8 @@ def test_mhts_surgery_and_region(tmp_path):
     """Round-5 completion: MHTS joins every surgery/random-access surface
     — extract/concat are verbatim record splices (the easiest surgery in
     the format), region decode loops per-frame decode_region."""
-    from metalhuffman_tpu import cli
-    from metalhuffman_tpu.models import surgery
+    from metalhuffman import cli
+    from metalhuffman.models import surgery
 
     frames = _frames(6, 24, 32, seed=17)
     blob = _batch_bytes(frames, NATIVE)

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from metalhuffman_tpu.models import CodecConfig, ImageCodec
+from metalhuffman.models import CodecConfig, ImageCodec
 
 
 def _frame(h, w, seed=0):
@@ -15,7 +15,7 @@ def _frame(h, w, seed=0):
 
 @pytest.mark.parametrize("backend", ["xla", "pallas", "native"])
 def test_roundtrip_verify(backend):
-    codec = ImageCodec(CodecConfig(backend=backend, interpret=backend == "pallas"))
+    codec = ImageCodec(CodecConfig(backend=backend))
     codec.roundtrip_verify(_frame(64, 96))
 
 

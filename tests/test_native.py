@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from metalhuffman_tpu import native
-from metalhuffman_tpu.core import bitstream, canonical, decode_ref, delta, encode, tables
+from metalhuffman import native
+from metalhuffman.core import bitstream, canonical, decode_ref, delta, encode, tables
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason=f"native build unavailable: {native.backend_name()}"
@@ -128,7 +128,7 @@ def test_fixed_table_encode_mt_identical(n_threads):
     the old serial-only path single-threaded width-clustered encodes);
     output must be byte-identical for any thread count AND identical to
     the default encoder when given that encoder's own table."""
-    from metalhuffman_tpu.core import canonical
+    from metalhuffman.core import canonical
 
     rng = np.random.default_rng(300 + n_threads)
     syms = (rng.normal(0, 12, 64 * 1511) % 256).astype(np.uint8)
@@ -256,7 +256,7 @@ def test_decode_blocks_delta2d_mode():
     rng = np.random.default_rng(22)
     img = np.cumsum(rng.normal(0, 6, (40, 48)), axis=0)
     img = (img - img.min()).clip(0, 255).astype(np.uint8)
-    from metalhuffman_tpu.core import blocks as blocks_mod
+    from metalhuffman.core import blocks as blocks_mod
 
     blk = blocks_mod.image_to_blocks(img)
     enc = native.encode_symbols(native.delta2d_encode(blk.ravel(), 8),

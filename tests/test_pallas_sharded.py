@@ -1,78 +1,62 @@
-"""Pallas kernel under shard_map on the 8-device CPU mesh (interpret mode)."""
+"""Decode kernel under shard_map on the 8-device CPU mesh (interpret mode)."""
 
 import jax.numpy as jnp
 import numpy as np
 
-from metalhuffman_tpu.core import blocks, delta, encode_symbols
-from metalhuffman_tpu.ops import decode_pallas
-from metalhuffman_tpu.parallel import mesh as mesh_mod, shard_decode
+from metalhuffman.core import blocks, delta, encode_symbols
+from metalhuffman.models import frame_stream
+from metalhuffman.ops import decode_pallas
+from metalhuffman.parallel import mesh as mesh_mod, shard_decode
+
+
+def _image(h, w, mod, seed):
+    rng = np.random.default_rng(seed)
+    img = (np.add.outer(np.arange(h), np.arange(w)) % mod).astype(np.uint8)
+    return (img + rng.integers(0, 5, img.shape)).astype(np.uint8)
 
 
 def test_pallas_sharded_matches_input():
-    rng = np.random.default_rng(0)
-    # 2 tiles per shard x 8 shards = 16 tiles = 16384 blocks
-    img = (np.add.outer(np.arange(1024), np.arange(1024)) % 239).astype(np.uint8)
-    img = (img + rng.integers(0, 5, img.shape)).astype(np.uint8)
+    # 128 block rows over 8 devices: 16 contiguous rows each
+    img = _image(1024, 1024, 239, 0)
     blk = blocks.image_to_blocks(img)
     enc = encode_symbols(delta.delta_encode_blocks(blk).ravel(), block_size=64)
 
-    meta, words, offsets, width = decode_pallas.prepare_stream(enc)
-    rows, init, nb = decode_pallas.tile_layout_jax(
-        jnp.asarray(words), jnp.asarray(offsets), width, group_tiles=2
-    )
-    assert rows.shape[0] % (8 * 2) == 0
-
+    words, offsets, t1, t2 = decode_pallas.prepare_stream(enc)
     m = mesh_mod.make_mesh(8)
-    out = shard_decode.decode_tiles_sharded(
-        rows, init, jnp.asarray(meta.pair_table),
-        mesh=m, width=width, bounds=meta.bounds, adj_inc=meta.adj_inc,
-        group_tiles=2, interpret=True,
-    )
-    decoded = np.asarray(decode_pallas.unpack_to_blocks(out, nb))
-    np.testing.assert_array_equal(decoded, blk)
+    out = shard_decode.decode_grid_sharded(
+        jnp.asarray(words), jnp.asarray(offsets), jnp.asarray(t1),
+        jnp.asarray(t2), mesh=m, grid_bw=128)
+    assert len({s.device for s in out.addressable_shards}) == 8
+    got = np.asarray(out).view(np.uint8).reshape(1024, 1024)
+    np.testing.assert_array_equal(got, img)
 
 
 def test_pallas_image_strips_sharded():
-    # 1024-px-wide frame -> h2=1; 8 shards each emit contiguous image rows
-    rng = np.random.default_rng(1)
-    img = (np.add.outer(np.arange(512), np.arange(1024)) % 233).astype(np.uint8)
-    img = (img + rng.integers(0, 5, img.shape)).astype(np.uint8)
+    # 64 block rows over 8 devices; a ragged row count pads per device
+    img = _image(504, 1024, 233, 1)  # 63 block rows -> 64
     blk = blocks.image_to_blocks(img)
     enc = encode_symbols(delta.delta_encode_blocks(blk).ravel(), block_size=64)
 
-    meta, words, offsets, width = decode_pallas.prepare_stream(enc)
-    rows, init, nb = decode_pallas.tile_layout_images(
-        jnp.asarray(words), jnp.asarray(offsets), width, h2=1, group_tiles=1
-    )
-    assert rows.shape[0] % 8 == 0  # 8 tiles, one per shard
+    words, offsets, t1, t2 = decode_pallas.prepare_stream(enc)
     m = mesh_mod.make_mesh(8)
-    strips = shard_decode.decode_tiles_images_sharded(
-        rows, init, jnp.asarray(meta.pair_table),
-        mesh=m, width=width, bounds=meta.bounds, adj_inc=meta.adj_inc,
-        h2=1, group_tiles=1, interpret=True,
-    )
-    img32 = np.asarray(decode_pallas.images_from_strips(strips, 1, 512, 1024))
-    out = img32.view(np.uint8).reshape(512, 1024)
-    np.testing.assert_array_equal(out, img)
+    out = shard_decode.decode_grid_sharded(
+        jnp.asarray(words), jnp.asarray(offsets), jnp.asarray(t1),
+        jnp.asarray(t2), mesh=m, grid_bw=128)
+    assert out.shape == (512, 256)
+    got = frame_stream.frames_from_raw(out, 1, 504, 1024)[0]
+    np.testing.assert_array_equal(got, img)
 
 
 def test_pallas_sharded_delta2d():
     """delta2d under shard_map: in-kernel reconstruction per block needs no
-    cross-chip state, so the mode shards exactly like the 1-D delta."""
-    from metalhuffman_tpu.models import frame_stream
-    from metalhuffman_tpu.models.image_codec import CodecConfig
+    cross-device state, so the mode shards exactly like the 1-D delta."""
+    from metalhuffman.models.image_codec import CodecConfig
 
-    rng = np.random.default_rng(2)
-    img = (np.add.outer(np.arange(512), np.arange(1024)) % 233).astype(np.uint8)
-    img = (img + rng.integers(0, 5, img.shape)).astype(np.uint8)
-    frames = img[None]
-
-    cfg = CodecConfig(backend="pallas", interpret=True, delta2d=True)
-    enc = frame_stream.encode_frames_shared(frames, cfg)
+    img = _image(512, 1024, 233, 2)
+    cfg = CodecConfig(backend="pallas", delta2d=True)
+    enc = frame_stream.encode_frames_shared(img[None], cfg)
     m = mesh_mod.make_mesh(8)
-    strips, nb, plan = frame_stream.decode_shared_sharded(
+    out = frame_stream.decode_shared_sharded(
         enc, 1, 512, 1024, mesh=m, config=cfg)
-    assert plan is not None
-    img32 = np.asarray(decode_pallas.images_from_strips(strips, 1, 512, 1024))
-    out = img32.view(np.uint8).reshape(512, 1024)
-    np.testing.assert_array_equal(out, img)
+    got = frame_stream.frames_from_raw(out, 1, 512, 1024)[0]
+    np.testing.assert_array_equal(got, img)

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from metalhuffman_tpu.core import blocks, delta, encode_symbols
-from metalhuffman_tpu.ops import decode_xla
-from metalhuffman_tpu.parallel import mesh as mesh_mod, shard_decode
+from metalhuffman.core import blocks, delta, encode_symbols
+from metalhuffman.ops import decode_xla
+from metalhuffman.parallel import mesh as mesh_mod, shard_decode
 
 
 def _encode_image(shape, seed=0):

@@ -10,9 +10,9 @@ the loop fast (device paths are gated bit-exact against it elsewhere).
 
 import numpy as np
 
-import metalhuffman_tpu as mh
-from metalhuffman_tpu.models import CodecConfig, frame_stream, surgery, temporal
-from metalhuffman_tpu.models import color as color_mod
+import metalhuffman as mh
+from metalhuffman.models import CodecConfig, frame_stream, surgery, temporal
+from metalhuffman.models import color as color_mod
 
 BACK = dict(backend="native")
 
@@ -130,7 +130,7 @@ def test_pipeline_fuzz(tmp_path):
             # through the layout-agnostic surfaces
             import io
 
-            from metalhuffman_tpu.models.stream_writer import (
+            from metalhuffman.models.stream_writer import (
                 TemporalStreamingEncoder)
 
             sink = io.BytesIO()
@@ -157,7 +157,7 @@ def test_pipeline_fuzz(tmp_path):
         else:
             import io
 
-            from metalhuffman_tpu.models.stream_writer import (
+            from metalhuffman.models.stream_writer import (
                 ColorStreamingEncoder, StreamingEncoder)
 
             cap = int(rng.integers(1, t + 1))
@@ -196,7 +196,7 @@ def test_pipeline_fuzz(tmp_path):
                 # round 5: the MHTS streaming writer + one-frame-at-a-time
                 # reader join the matrix (gray only, like the batch CLI)
                 sink_m = io.BytesIO()
-                from metalhuffman_tpu.models.stream_writer import (
+                from metalhuffman.models.stream_writer import (
                     MHTSStreamingEncoder)
 
                 with MHTSStreamingEncoder(sink_m, h, w, cfg) as enc_m:

@@ -12,9 +12,9 @@ the temporal analog of ``ImageCodec.decode_region``.
 import numpy as np
 import pytest
 
-import metalhuffman_tpu as mht
-from metalhuffman_tpu.models import frame_stream
-from metalhuffman_tpu.models.image_codec import CodecConfig
+import metalhuffman as mht
+from metalhuffman.models import frame_stream
+from metalhuffman.models.image_codec import CodecConfig
 
 
 def _frames(t, h, w, seed=0):
@@ -27,7 +27,7 @@ def _frames(t, h, w, seed=0):
 @pytest.mark.parametrize("mode", ["delta", "zero_init", "delta2d"])
 def test_decode_frame_matches_batch(backend, mode):
     frames = _frames(4, 24, 40, seed=1)
-    cfg = CodecConfig(backend=backend, interpret=True,
+    cfg = CodecConfig(backend=backend,
                       zero_init=mode == "zero_init",
                       delta2d=mode == "delta2d")
     stream = frame_stream.encode_frames_shared(frames, cfg)
@@ -50,8 +50,8 @@ def test_frame_slice_multi_frame_and_bounds():
 
 
 def test_cli_frame_mhtv_and_mhv2(tmp_path):
-    from metalhuffman_tpu import cli
-    from metalhuffman_tpu.utils import imageio
+    from metalhuffman import cli
+    from metalhuffman.utils import imageio
 
     frames = _frames(3, 16, 32, seed=3)
     src = tmp_path / "f.npy"
@@ -87,7 +87,7 @@ def test_cli_frame_mhtv_and_mhv2(tmp_path):
 def test_cli_frame_mhts_verifies_record_crc(tmp_path):
     import zlib
 
-    from metalhuffman_tpu import cli
+    from metalhuffman import cli
 
     frames = _frames(2, 16, 16, seed=4)
     cfg = CodecConfig(backend="native")
@@ -120,8 +120,8 @@ def test_mixed_predictor_mhts_decodes_per_frame(tmp_path):
     (the batched path refuses mixed batches; the CLI falls back per frame)."""
     import dataclasses
 
-    from metalhuffman_tpu import cli
-    from metalhuffman_tpu.models import ImageCodec
+    from metalhuffman import cli
+    from metalhuffman.models import ImageCodec
 
     frames = _frames(2, 16, 24, seed=9)
     s0 = ImageCodec(CodecConfig(backend="native")).encode(frames[0])
@@ -180,7 +180,7 @@ def test_video_region_segmented_and_delta2d():
 
 
 def test_video_region_color_and_u16():
-    from metalhuffman_tpu.models import color
+    from metalhuffman.models import color
 
     rng = np.random.default_rng(4)
     cframes = np.stack([np.roll(rng.integers(0, 256, (24, 32, 3), np.uint8),
@@ -201,7 +201,7 @@ def test_video_region_color_and_u16():
 
 
 def test_video_region_temporal_plain_and_mc():
-    from metalhuffman_tpu.models import temporal
+    from metalhuffman.models import temporal
 
     frames = _region_frames(t=9)
     # plain temporal: only the region's blocks decode (pixel-wise fold)
@@ -219,7 +219,7 @@ def test_video_region_temporal_plain_and_mc():
 
 
 def test_cli_region(tmp_path):
-    from metalhuffman_tpu.cli import main
+    from metalhuffman.cli import main
 
     frames = _region_frames(t=5)
     src = tmp_path / "v.npy"
@@ -237,8 +237,8 @@ def test_cli_region(tmp_path):
 
 
 def test_cli_frames_range(tmp_path):
-    from metalhuffman_tpu.cli import main
-    from metalhuffman_tpu.models import temporal
+    from metalhuffman.cli import main
+    from metalhuffman.models import temporal
 
     frames = _region_frames(t=7)
     src = tmp_path / "v.npy"
@@ -272,7 +272,7 @@ def test_cli_frames_range(tmp_path):
 def test_frames_range_mhts(tmp_path):
     # per-frame-table MHTS: decode_range loops single-frame decodes and
     # verifies each frame's recorded CRC (round-3 review finding)
-    from metalhuffman_tpu.cli import main
+    from metalhuffman.cli import main
 
     frames = _region_frames(t=5)
     src = tmp_path / "v.npy"

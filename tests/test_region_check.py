@@ -12,8 +12,8 @@ it) while the crop itself stays bit-exact.
 import numpy as np
 import pytest
 
-from metalhuffman_tpu.models import frame_stream, image_codec
-from metalhuffman_tpu.models.image_codec import CodecConfig, ImageCodec
+from metalhuffman.models import frame_stream, image_codec
+from metalhuffman.models.image_codec import CodecConfig, ImageCodec
 
 
 def _image(h, w, seed=0):
@@ -49,7 +49,7 @@ BACKENDS = ["native", "pallas", "xla"]
 @pytest.mark.parametrize("backend", BACKENDS)
 def test_region_check_clean(backend):
     img = _image(48, 64, seed=1)
-    codec = ImageCodec(CodecConfig(backend=backend, interpret=True))
+    codec = ImageCodec(CodecConfig(backend=backend))
     stream = codec.encode(img)
     out = codec.decode_region(stream, 48, 64, 10, 19, 21, 26, check=True)
     np.testing.assert_array_equal(out, img[10:31, 19:45])
@@ -58,7 +58,7 @@ def test_region_check_clean(backend):
 @pytest.mark.parametrize("backend", BACKENDS)
 def test_region_check_catches_inside_corruption(backend):
     img = _image(48, 64, seed=2)
-    codec = ImageCodec(CodecConfig(backend=backend, interpret=True))
+    codec = ImageCodec(CodecConfig(backend=backend))
     stream = codec.encode(img)
     # region rows 16..32, cols 24..48 -> block rect rows 2..4, cols 3..6 of
     # the 6x8 grid; block (2, 4) = index 20 is inside the selection
@@ -70,7 +70,7 @@ def test_region_check_catches_inside_corruption(backend):
 @pytest.mark.parametrize("backend", BACKENDS)
 def test_region_check_ignores_outside_corruption(backend):
     img = _image(48, 64, seed=3)
-    codec = ImageCodec(CodecConfig(backend=backend, interpret=True))
+    codec = ImageCodec(CodecConfig(backend=backend))
     stream = codec.encode(img)
     # corrupt block (2, 7) — same block ROW as the region (so its bytes sit
     # inside the staged word range) but outside the selected columns
@@ -85,7 +85,7 @@ def test_region_check_last_block_window(backend):
     # window check (the end is only known to within 7 bits) instead of the
     # exact next-offset target
     img = _image(32, 32, seed=4)
-    codec = ImageCodec(CodecConfig(backend=backend, interpret=True))
+    codec = ImageCodec(CodecConfig(backend=backend))
     stream = codec.encode(img)
     out = codec.decode_region(stream, 32, 32, 24, 24, 8, 8, check=True)
     np.testing.assert_array_equal(out, img[24:, 24:])
@@ -137,7 +137,7 @@ def _frames(t, h, w, seed=0):
 @pytest.mark.parametrize("backend", ["native", "pallas"])
 def test_video_region_check(backend):
     frames = _frames(4, 24, 40, seed=6)
-    cfg = CodecConfig(backend=backend, interpret=True)
+    cfg = CodecConfig(backend=backend)
     stream = frame_stream.encode_frames_shared(frames, cfg)
     blob = frame_stream.write_shared(stream, 4, 24, 40, cfg)
     out = frame_stream.decode_video_region(
@@ -160,7 +160,7 @@ def test_video_region_check(backend):
 
 
 def test_cli_region_check(tmp_path):
-    from metalhuffman_tpu import cli
+    from metalhuffman import cli
 
     frames = _frames(3, 16, 32, seed=7)
     src = tmp_path / "f.npy"
@@ -186,7 +186,7 @@ def test_cli_region_check(tmp_path):
 
 
 def test_region_salvage_refused(tmp_path):
-    from metalhuffman_tpu import cli
+    from metalhuffman import cli
 
     frames = _frames(2, 16, 16, seed=8)
     src = tmp_path / "f.npy"
@@ -201,7 +201,7 @@ def test_region_salvage_refused(tmp_path):
 
 
 def test_temporal_region_check(tmp_path):
-    from metalhuffman_tpu.models import temporal
+    from metalhuffman.models import temporal
 
     frames = _frames(6, 16, 24, seed=9)
     cfg = CodecConfig(backend="native", temporal=True, keyint=3)
@@ -216,7 +216,7 @@ def test_mc_region_check_requires_frame_crcs(tmp_path):
     must therefore refuse without a per-frame CRC table rather than
     silently decode unchecked (round-4 review finding), and verify via
     the table when one is recorded."""
-    from metalhuffman_tpu.models import temporal
+    from metalhuffman.models import temporal
 
     frames = _frames(6, 16, 24, seed=11)
     cfg = CodecConfig(backend="native", temporal=True, keyint=3, motion=True)
@@ -237,9 +237,9 @@ def test_strips_available_predicts_raw_path():
     """The header-only probe must agree with the strips decode's own
     applicability (no discarded decodes). Geometry no longer gates it —
     round 5's padded roll lets MC ride any plannable strip layout."""
-    from metalhuffman_tpu.models import temporal
+    from metalhuffman.models import temporal
 
-    cfg = CodecConfig(backend="pallas", interpret=True)
+    cfg = CodecConfig(backend="pallas")
     for h, w in [(16, 512), (16, 500), (12, 512)]:
         frames = _frames(2, h, w, seed=13)
         enc = frame_stream.encode_frames_shared(
@@ -251,7 +251,7 @@ def test_strips_available_predicts_raw_path():
 
 
 def test_extract_reports_reencoded_frames():
-    from metalhuffman_tpu.models import surgery, temporal
+    from metalhuffman.models import surgery, temporal
 
     frames = _frames(7, 16, 24, seed=15)
     cfg = CodecConfig(backend="native", temporal=True, keyint=3)

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from metalhuffman_tpu.core import container
-from metalhuffman_tpu.models import CodecConfig, ImageCodec
-from metalhuffman_tpu.ops import decode_xla
+from metalhuffman.core import container
+from metalhuffman.models import CodecConfig, ImageCodec
+from metalhuffman.ops import decode_xla
 
 
 def _img(seed=0, shape=(32, 48)):
@@ -81,8 +81,8 @@ def test_truncation_fuzz_every_container_kind():
     (or decode to a wrong payload that the CRC catches) — never a raw
     IndexError/struct.error/TypeError crash (round-3 robustness net across
     MHT1/MHTV/MHV2/MHTS/MHTC/MHVT incl. motion + FCRC tables)."""
-    import metalhuffman_tpu as mh
-    from metalhuffman_tpu.models import CodecConfig, color, frame_stream, temporal
+    import metalhuffman as mh
+    from metalhuffman.models import CodecConfig, color, frame_stream, temporal
 
     rng = np.random.default_rng(5)
     base = rng.integers(0, 256, (20, 24), np.uint8)
@@ -139,8 +139,8 @@ def test_header_bitflip_fuzz_every_container_kind():
     output. The width-table half exercises the round-4 Kraft validation in
     ``container.parse_core_blob``; the rest exercises geometry/flag/CRC
     handling across MHT1/MHTV/MHTS/MHTC/MHVT."""
-    import metalhuffman_tpu as mh
-    from metalhuffman_tpu.models import CodecConfig, color, frame_stream, temporal
+    import metalhuffman as mh
+    from metalhuffman.models import CodecConfig, color, frame_stream, temporal
 
     rng = np.random.default_rng(11)
     base = rng.integers(0, 256, (20, 24), np.uint8)

@@ -1,8 +1,8 @@
 """Sharded multi-chip encoder: byte-identity vs the host encoder.
 
-Runs on the virtual 8-device CPU mesh (conftest) with the stage-1 Pallas
-kernel in interpret mode — the same path ``__graft_entry__.dryrun_multichip``
-certifies and the TPU compiles. Every test asserts full byte-identity of
+Runs on the virtual 8-device CPU mesh (conftest) with the stage-1 packer
+(plain XLA) — the same path ``__graft_entry__.dryrun_multichip`` certifies
+and the GPU compiles. Every test asserts full byte-identity of
 (code_bytes, block_offsets, widths) against ``native.encode_symbols``: the
 seam splice, the all_gather prefix, and the per-shard merges must reproduce
 the serial stream exactly.
@@ -13,8 +13,8 @@ import pytest
 
 jax = pytest.importorskip("jax")
 
-from metalhuffman_tpu import native
-from metalhuffman_tpu.parallel import mesh as mesh_mod, shard_encode
+from metalhuffman import native
+from metalhuffman.parallel import mesh as mesh_mod, shard_encode
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs the 8-device CPU mesh")
@@ -34,9 +34,9 @@ def _assert_identical(got, ref):
 
 
 @pytest.mark.parametrize("n_blocks,tail", [
-    (3000, 0),        # 3 tiles: shards 3..7 hold only padding
-    (8 * 1024, 0),    # exactly one tile per shard
-    (9 * 1024 + 123, 37),  # 2 tiles/shard, partial last shard, tail symbols
+    (3000, 0),        # 375 blocks a shard
+    (8 * 1024, 0),    # exactly 1024 blocks a shard
+    (9 * 1024 + 123, 37),  # partial last shard, tail symbols
 ])
 def test_sharded_matches_native(n_blocks, tail):
     rng = np.random.default_rng(n_blocks)
@@ -44,7 +44,7 @@ def test_sharded_matches_native(n_blocks, tail):
     ref = native.encode_symbols(data, 64)
     mesh = mesh_mod.make_mesh(8)
     got = shard_encode.encode_symbols_sharded(
-        data, mesh=mesh, interpret=True)
+        data, mesh=mesh)
     _assert_identical(got, ref)
 
 
@@ -52,18 +52,18 @@ def test_sharded_roundtrips():
     rng = np.random.default_rng(5)
     data = _skewed(rng, 2500 * 64)
     mesh = mesh_mod.make_mesh(8)
-    got = shard_encode.encode_symbols_sharded(data, mesh=mesh, interpret=True)
+    got = shard_encode.encode_symbols_sharded(data, mesh=mesh)
     dec = native.decode_blocks(got, delta=False).ravel()
     np.testing.assert_array_equal(dec, data)
 
 
 def test_sharded_small_mesh():
-    # a 2-shard mesh exercises a different tile split than 8
+    # a 2-shard mesh exercises a different block split than 8
     rng = np.random.default_rng(9)
     data = _skewed(rng, 1100 * 64 + 5)
     ref = native.encode_symbols(data, 64)
     mesh = mesh_mod.make_mesh(2)
-    got = shard_encode.encode_symbols_sharded(data, mesh=mesh, interpret=True)
+    got = shard_encode.encode_symbols_sharded(data, mesh=mesh)
     _assert_identical(got, ref)
 
 
@@ -71,7 +71,7 @@ def test_sharded_sub_block_falls_back():
     data = np.arange(40, dtype=np.uint8)
     ref = native.encode_symbols(data, 64)
     mesh = mesh_mod.make_mesh(8)
-    got = shard_encode.encode_symbols_sharded(data, mesh=mesh, interpret=True)
+    got = shard_encode.encode_symbols_sharded(data, mesh=mesh)
     _assert_identical(got, ref)
 
 
@@ -89,5 +89,5 @@ def test_sharded_incompressible_wide_rows():
     data = rng.integers(0, 256, 9 * 1024 * 64, np.uint8)
     ref = native.encode_symbols(data, 64)
     mesh = mesh_mod.make_mesh(8)
-    got = shard_encode.encode_symbols_sharded(data, mesh=mesh, interpret=True)
+    got = shard_encode.encode_symbols_sharded(data, mesh=mesh)
     _assert_identical(got, ref)

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from metalhuffman_tpu.models import CodecConfig, frame_stream
+from metalhuffman.models import CodecConfig, frame_stream
 
 
 def _frames(t, h, w, seed=0):
@@ -17,7 +17,7 @@ def _frames(t, h, w, seed=0):
 
 
 def test_shared_roundtrip_interpret():
-    cfg = CodecConfig(backend="pallas", interpret=True)
+    cfg = CodecConfig(backend="pallas")
     frames = _frames(4, 32, 48)
     stream = frame_stream.encode_frames_shared(frames, cfg)
     out = np.asarray(frame_stream.decode_frames_shared(stream, 4, 32, 48, cfg))
@@ -25,7 +25,7 @@ def test_shared_roundtrip_interpret():
 
 
 def test_shared_stream_is_one_table():
-    cfg = CodecConfig(backend="pallas", interpret=True)
+    cfg = CodecConfig(backend="pallas")
     frames = _frames(3, 24, 24, seed=5)
     stream = frame_stream.encode_frames_shared(frames, cfg)
     # 3 frames x (24x24 -> 3x3 blocks of 8x8) = 27 blocks in one stream
@@ -34,7 +34,7 @@ def test_shared_stream_is_one_table():
 
 
 def test_shared_prepare_step_split():
-    cfg = CodecConfig(backend="pallas", interpret=True)
+    cfg = CodecConfig(backend="pallas")
     frames = _frames(2, 16, 32, seed=7)
     stream = frame_stream.encode_frames_shared(frames, cfg)
     prep = frame_stream.prepare_shared(stream, 2, 16, 32, cfg)
@@ -45,126 +45,134 @@ def test_shared_prepare_step_split():
 
 
 def test_shared_image_layout_path_interpret():
-    # width 1024 -> h2=1 exercises the image-layout kernel (interpret mode)
-    cfg = CodecConfig(backend="pallas", interpret=True)
+    # the kernel writes image words: the raw output is the frame as int32
+    # words, viewed as bytes on the host
+    cfg = CodecConfig(backend="pallas")
     frames = _frames(2, 16, 1024, seed=9)
     stream = frame_stream.encode_frames_shared(frames, cfg)
     prep = frame_stream.prepare_shared(stream, 2, 16, 1024, cfg)
-    assert prep.h2 == 1
     out = np.asarray(frame_stream.decode_shared_step(prep, cfg))
     np.testing.assert_array_equal(out, frames)
     raw = frame_stream.decode_shared_step(prep, cfg, raw=True)
+    assert raw.shape == (2, 16, 256) and raw.dtype == np.int32
     view = frame_stream.frames_from_raw(raw, 2, 16, 1024)
     np.testing.assert_array_equal(view, frames)
 
 
 def test_shared_image_layout_h2_2_interpret():
-    cfg = CodecConfig(backend="pallas", interpret=True)
+    cfg = CodecConfig(backend="pallas")
     frames = _frames(1, 8, 2048, seed=10)
     stream = frame_stream.encode_frames_shared(frames, cfg)
     prep = frame_stream.prepare_shared(stream, 1, 8, 2048, cfg)
-    assert prep.h2 == 2
     out = np.asarray(frame_stream.decode_shared_step(prep, cfg))
     np.testing.assert_array_equal(out, frames)
 
 
 def test_shared_sharded_image_path():
-    from metalhuffman_tpu.ops import decode_pallas
-    from metalhuffman_tpu.parallel import mesh as mesh_mod
+    from metalhuffman.parallel import mesh as mesh_mod
 
-    cfg = CodecConfig(backend="pallas", interpret=True)
-    frames = _frames(2, 64, 1024, seed=11)  # h2=1; 16 blk-rows -> 2 progs... pads
+    cfg = CodecConfig(backend="pallas")
+    frames = _frames(2, 64, 1024, seed=11)
     stream = frame_stream.encode_frames_shared(frames, cfg)
     m = mesh_mod.make_mesh(2)
-    out, nb, plan = frame_stream.decode_shared_sharded(
+    out = frame_stream.decode_shared_sharded(
         stream, 2, 64, 1024, mesh=m, config=cfg)
-    assert plan is not None and plan.h2 == 1 and plan.w_pad == 1024
-    img32 = np.asarray(decode_pallas.images_from_strips(out, 2, 64, 1024))
-    view = img32.reshape(-1, 256).view(np.uint8).reshape(2, 64, 1024)
+    assert out.shape == (128, 256)
+    # each device holds a contiguous range of image rows
+    assert [s.data.shape for s in out.addressable_shards] == [(64, 256)] * 2
+    view = frame_stream.frames_from_raw(out, 2, 64, 1024)
     np.testing.assert_array_equal(view, frames)
 
 
 def test_shared_sharded_generic_path():
-    from metalhuffman_tpu.ops import decode_pallas
-    from metalhuffman_tpu.parallel import mesh as mesh_mod
+    from metalhuffman.parallel import mesh as mesh_mod
 
-    cfg = CodecConfig(backend="pallas", interpret=True)
-    frames = _frames(2, 40, 48, seed=12)  # width not 1024-multiple
+    cfg = CodecConfig(backend="pallas")
+    frames = _frames(2, 40, 44, seed=12)  # 5x6 blocks, 10 rows over 4
     stream = frame_stream.encode_frames_shared(frames, cfg)
-    m = mesh_mod.make_mesh(2)
-    out, nb, plan = frame_stream.decode_shared_sharded(
-        stream, 2, 40, 48, mesh=m, config=cfg)
-    assert plan is None
-    blk = np.asarray(decode_pallas.unpack_to_blocks(out, nb))
-    from metalhuffman_tpu.core import blocks as blocks_mod
-
-    nbf = nb // 2
-    for i in range(2):
-        img = blocks_mod.blocks_to_image(blk[i * nbf : (i + 1) * nbf], 40, 48)
-        np.testing.assert_array_equal(img, frames[i])
+    m = mesh_mod.make_mesh(4)
+    out = frame_stream.decode_shared_sharded(
+        stream, 2, 40, 44, mesh=m, config=cfg)
+    assert out.shape == (12 * 8, 12)  # rows padded to whole rows/device
+    view = frame_stream.frames_from_raw(out, 2, 40, 44)
+    np.testing.assert_array_equal(view, frames)
 
 
 def test_shared_padded_image_path_1080p_interpret():
-    # 1920 px is NOT a multiple of 1024: the ImagePlan pads each block row
-    # from 240 to 256 blocks (h2=2) and the consumer crops — the geometry
-    # that round 1 left on the generic slow path. Small frame count keeps
-    # interpret mode fast; the real-chip rate is measured by perf_matrix.
-    from metalhuffman_tpu.ops import decode_pallas
-
-    cfg = CodecConfig(backend="pallas", interpret=True)
-    plan = decode_pallas.image_plan_for(1080, 1920)
-    assert plan is not None and (plan.h2, plan.bw, plan.bw_pad) == (2, 240, 256)
+    # 1920 px = 240 blocks a row: image words need no padding beyond whole
+    # blocks (1080 rows = 135 block rows exactly)
+    cfg = CodecConfig(backend="pallas")
     frames = _frames(1, 48, 1920, seed=13)
     stream = frame_stream.encode_frames_shared(frames, cfg)
     prep = frame_stream.prepare_shared(stream, 1, 48, 1920, cfg)
-    assert prep.h2 == 2 and prep.w_pad == 2048
     out = np.asarray(frame_stream.decode_shared_step(prep, cfg))
     np.testing.assert_array_equal(out, frames)
     raw = frame_stream.decode_shared_step(prep, cfg, raw=True)
-    view = frame_stream.frames_from_raw(
-        raw, 1, 48, 1920, w_pad=prep.w_pad, bh=prep.bh)
+    assert raw.shape == (1, 48, 480)
+    view = frame_stream.frames_from_raw(raw, 1, 48, 1920)
     np.testing.assert_array_equal(view, frames)
 
 
 def test_shared_padded_image_path_odd_geometry_interpret():
     # non-multiple-of-8 height AND width: row and column crop both engage
-    cfg = CodecConfig(backend="pallas", interpret=True)
-    frames = _frames(2, 20, 1212, seed=14)  # bh=3 (24 rows), bw=152 -> pad 256
+    cfg = CodecConfig(backend="pallas")
+    frames = _frames(2, 20, 1212, seed=14)  # bh=3 (24 rows), bw=152
     stream = frame_stream.encode_frames_shared(frames, cfg)
     prep = frame_stream.prepare_shared(stream, 2, 20, 1212, cfg)
-    assert prep.h2 == 2 and prep.bh == 3
     out = np.asarray(frame_stream.decode_shared_step(prep, cfg))
     np.testing.assert_array_equal(out, frames)
     raw = frame_stream.decode_shared_step(prep, cfg, raw=True)
-    view = frame_stream.frames_from_raw(
-        raw, 2, 20, 1212, w_pad=prep.w_pad, bh=prep.bh)
+    assert raw.shape == (2, 24, 304)
+    view = frame_stream.frames_from_raw(raw, 2, 20, 1212)
     np.testing.assert_array_equal(view, frames)
 
 
 def test_shared_image_path_h2_3_g6_interpret():
-    # 2560 px: h2=3 requires the g=6 grouping (sub=48) — a kernel shape no
-    # other geometry exercises
-    cfg = CodecConfig(backend="pallas", interpret=True)
+    # 2560 px (320 blocks a row)
+    cfg = CodecConfig(backend="pallas")
     frames = _frames(1, 16, 2560, seed=15)
     stream = frame_stream.encode_frames_shared(frames, cfg)
     prep = frame_stream.prepare_shared(stream, 1, 16, 2560, cfg)
-    assert prep.h2 == 3 and prep.group_tiles == 6
     out = np.asarray(frame_stream.decode_shared_step(prep, cfg))
     np.testing.assert_array_equal(out, frames)
 
 
-def test_image_plan_selection():
-    from metalhuffman_tpu.ops import decode_pallas as dp
+def test_padded_geometry():
+    from metalhuffman.ops import decode_pallas as dp
 
-    # exact fits keep g=8
-    assert dp.image_plan_for(1536, 2048).group_tiles == 8
-    # h2=3 (2560 px) needs g=6 (h2 | 8g)
-    p = dp.image_plan_for(1536, 2560)
-    assert (p.h2, p.group_tiles, p.bw_pad) == (3, 6, 384)
-    # tiny widths: pad waste > 2x -> generic path
-    assert dp.image_plan_for(64, 64) is None
-    # non-8x8 blocks -> generic
-    assert dp.image_plan_for(1536, 2048, block_dim=4) is None
+    assert dp.padded_geometry(1536, 2048) == (1536, 2048)
+    assert dp.padded_geometry(1080, 1920) == (1080, 1920)
+    assert dp.padded_geometry(20, 1212) == (24, 1216)
+    assert dp.padded_geometry(20, 1212, block_dim=16) == (32, 1216)
+
+
+@pytest.mark.parametrize("raw", [False, True], ids=["frames", "raw"])
+def test_xla_backend_matches_kernel(raw):
+    """backend="xla" is the explicit plain-XLA decode through the same
+    staging and step functions, with the same output contract."""
+    frames = _frames(2, 24, 40, seed=16)
+    outs = []
+    for backend in ("pallas", "xla"):
+        cfg = CodecConfig(backend=backend)
+        stream = frame_stream.encode_frames_shared(frames, cfg)
+        prep = frame_stream.prepare_shared(stream, 2, 24, 40, cfg)
+        assert prep.backend == backend
+        outs.append(np.asarray(
+            frame_stream.decode_shared_step(prep, cfg, raw=raw)))
+    np.testing.assert_array_equal(outs[0], outs[1])
+    got = frame_stream.frames_from_raw(outs[1], 2, 24, 40) if raw else outs[1]
+    np.testing.assert_array_equal(got, frames)
+
+
+def test_raw_refused_for_2x2_blocks():
+    cfg = CodecConfig(backend="pallas", block_dim=2)
+    frames = _frames(1, 8, 12, seed=17)
+    stream = frame_stream.encode_frames_shared(frames, cfg)
+    prep = frame_stream.prepare_shared(stream, 1, 8, 12, cfg)
+    with pytest.raises(ValueError, match="raw"):
+        frame_stream.decode_shared_step(prep, cfg, raw=True)
+    np.testing.assert_array_equal(
+        np.asarray(frame_stream.decode_shared_step(prep, cfg)), frames)
 
 
 def test_shared_rejects_bad_shapes():

@@ -12,8 +12,8 @@ import zlib
 import numpy as np
 import pytest
 
-from metalhuffman_tpu.models import CodecConfig, frame_stream
-from metalhuffman_tpu.models.stream_writer import StreamingEncoder
+from metalhuffman.models import CodecConfig, frame_stream
+from metalhuffman.models.stream_writer import StreamingEncoder
 
 
 def _frames(t, h, w, seed=0):
@@ -39,7 +39,7 @@ def _batch_bytes(frames, cfg, max_segment_bits, frame_crcs=False):
 
 def _segment_bits_for(per, h, w, cfg):
     """max_segment_bits that yields exactly ``per`` frames per segment."""
-    from metalhuffman_tpu.core import blocks
+    from metalhuffman.core import blocks
 
     bh, bw = blocks.block_grid(h, w, cfg.block_dim)
     fs = bh * bw * cfg.block_size
@@ -176,7 +176,7 @@ def test_failed_close_after_abort_raises_cleanly():
 
 
 def test_color_failed_close_and_init_leave_no_torn_header(tmp_path):
-    from metalhuffman_tpu.models.stream_writer import ColorStreamingEncoder
+    from metalhuffman.models.stream_writer import ColorStreamingEncoder
 
     p = tmp_path / "torn.mhtc"
     enc = ColorStreamingEncoder(p, 16, 16, channels=3)
@@ -209,7 +209,7 @@ def test_push_drains_at_segment_granularity():
 
 
 def test_cli_streaming_decode_failure_leaves_no_output(tmp_path):
-    from metalhuffman_tpu import cli
+    from metalhuffman import cli
 
     frames = _frames(4, 16, 16, seed=43)
     src = tmp_path / "f.npy"
@@ -234,7 +234,7 @@ def test_cli_streaming_decode_failure_leaves_no_output(tmp_path):
 
 
 def test_cli_segment_frames_zero_is_clean_error(tmp_path):
-    from metalhuffman_tpu import cli
+    from metalhuffman import cli
 
     src = tmp_path / "f.npy"
     np.save(src, _frames(2, 16, 16))
@@ -266,7 +266,7 @@ def test_abort_truncates(tmp_path):
 
 
 def test_cli_streaming_encode_roundtrip(tmp_path):
-    from metalhuffman_tpu import cli
+    from metalhuffman import cli
 
     frames = _frames(9, 32, 48, seed=4)
     src = tmp_path / "f.npy"
@@ -289,8 +289,8 @@ def test_cli_streaming_encode_roundtrip(tmp_path):
 
 
 def test_cli_streaming_directory_input(tmp_path):
-    from metalhuffman_tpu import cli
-    from metalhuffman_tpu.utils import imageio
+    from metalhuffman import cli
+    from metalhuffman.utils import imageio
 
     frames = _frames(3, 16, 24, seed=8)
     d = tmp_path / "imgs"
@@ -305,7 +305,7 @@ def test_cli_streaming_directory_input(tmp_path):
 
 
 def test_cli_streaming_refuses_whole_sequence_flags(tmp_path):
-    from metalhuffman_tpu import cli
+    from metalhuffman import cli
 
     src = tmp_path / "f.npy"
     np.save(src, _frames(2, 16, 16))
@@ -325,8 +325,8 @@ def test_cli_streaming_refuses_whole_sequence_flags(tmp_path):
 
 
 def test_cli_streaming_decode_npy_and_dir(tmp_path):
-    from metalhuffman_tpu import cli
-    from metalhuffman_tpu.utils import imageio
+    from metalhuffman import cli
+    from metalhuffman.utils import imageio
 
     frames = _frames(7, 24, 32, seed=13)
     src = tmp_path / "f.npy"
@@ -348,7 +348,7 @@ def test_cli_streaming_decode_npy_and_dir(tmp_path):
 
 def test_cli_streaming_decode_checked_and_salvage(tmp_path):
     """--streaming composes with --check/--salvage (per-segment, on-device)."""
-    from metalhuffman_tpu import cli
+    from metalhuffman import cli
 
     frames = _frames(4, 16, 16, seed=15)
     src = tmp_path / "f.npy"
@@ -377,7 +377,7 @@ def test_cli_streaming_decode_checked_and_salvage(tmp_path):
 
 
 def test_cli_streaming_decode_refusals(tmp_path):
-    from metalhuffman_tpu import cli
+    from metalhuffman import cli
 
     frames = _frames(2, 16, 16)
     src = tmp_path / "f.npy"
@@ -397,7 +397,7 @@ def test_cli_streaming_decode_refusals(tmp_path):
 
 def test_cli_streaming_decode_crc_catches_silent_corruption(tmp_path):
     """The streamed chained CRC equals the recorded whole-payload CRC."""
-    from metalhuffman_tpu import cli
+    from metalhuffman import cli
 
     frames = _frames(4, 16, 16, seed=17)
     src = tmp_path / "f.npy"
@@ -425,8 +425,8 @@ def _color_frames(t, h, w, c=3, seed=0):
 
 def test_color_streaming_matches_wrapped_plane_stream():
     """MHTC streamed = 8-byte header + the planes' StreamingEncoder bytes."""
-    from metalhuffman_tpu.models import color
-    from metalhuffman_tpu.models.stream_writer import ColorStreamingEncoder
+    from metalhuffman.models import color
+    from metalhuffman.models.stream_writer import ColorStreamingEncoder
 
     frames = _color_frames(5, 16, 16, seed=21)
     t, h, w, c = frames.shape
@@ -455,8 +455,8 @@ def test_color_streaming_matches_wrapped_plane_stream():
 
 
 def test_u16_streaming_roundtrip():
-    from metalhuffman_tpu.models import color
-    from metalhuffman_tpu.models.stream_writer import ColorStreamingEncoder
+    from metalhuffman.models import color
+    from metalhuffman.models.stream_writer import ColorStreamingEncoder
 
     rng = np.random.default_rng(23)
     frames = rng.integers(0, 65536, (4, 16, 24)).astype(np.uint16)
@@ -471,8 +471,8 @@ def test_u16_streaming_roundtrip():
 
 
 def test_color_streaming_validation():
-    from metalhuffman_tpu.models import color
-    from metalhuffman_tpu.models.stream_writer import ColorStreamingEncoder
+    from metalhuffman.models import color
+    from metalhuffman.models.stream_writer import ColorStreamingEncoder
 
     with pytest.raises(ValueError, match="channels"):
         ColorStreamingEncoder(io.BytesIO(), 16, 16)
@@ -488,7 +488,7 @@ def test_color_streaming_validation():
 
 
 def test_cli_streaming_color_and_u16_roundtrip(tmp_path):
-    from metalhuffman_tpu import cli
+    from metalhuffman import cli
 
     cframes = _color_frames(7, 24, 32, seed=25)
     src = tmp_path / "c.npy"
@@ -518,7 +518,7 @@ def test_cli_streaming_color_and_u16_roundtrip(tmp_path):
     outdir = tmp_path / "pngs"
     assert cli.main(["decode-video", str(mhtc), str(outdir), "--streaming",
                      "--backend", "native"]) == 0
-    from metalhuffman_tpu.utils import imageio
+    from metalhuffman.utils import imageio
 
     got = np.stack([imageio.load_color(outdir / f"frame_{i:05d}.png")
                     for i in range(7)])
@@ -532,8 +532,8 @@ def test_streaming_decode_carries_partial_frames_across_segments(tmp_path):
     misaligned case directly: stream the planes with a 4-plane segment cap
     (not a multiple of 3 channels) and wrap in the MHTC header by hand.
     """
-    from metalhuffman_tpu import cli
-    from metalhuffman_tpu.models import color
+    from metalhuffman import cli
+    from metalhuffman.models import color
 
     frames = _color_frames(4, 16, 16, seed=29)  # 12 planes -> segs 4/4/4
     t, h, w, c = frames.shape
@@ -551,7 +551,7 @@ def test_streaming_decode_carries_partial_frames_across_segments(tmp_path):
 
 
 def test_iter_temporal_video_chunks_group_aligned():
-    from metalhuffman_tpu.models import temporal
+    from metalhuffman.models import temporal
 
     frames = _frames(11, 16, 16, seed=31)
     cfg = CodecConfig(backend="native", temporal=True, keyint=4)
@@ -567,7 +567,7 @@ def test_iter_temporal_video_chunks_group_aligned():
 
 
 def test_iter_temporal_video_streamed_crc_detects_corruption():
-    from metalhuffman_tpu.models import temporal
+    from metalhuffman.models import temporal
 
     frames = _frames(6, 16, 16, seed=33)
     cfg = CodecConfig(backend="native", temporal=True, keyint=3)
@@ -584,7 +584,7 @@ def test_iter_temporal_video_streamed_crc_detects_corruption():
 
 
 def test_cli_streaming_decode_mhvt(tmp_path):
-    from metalhuffman_tpu import cli
+    from metalhuffman import cli
 
     frames = _frames(10, 24, 24, seed=35)
     src = tmp_path / "f.npy"
@@ -600,7 +600,7 @@ def test_cli_streaming_decode_mhvt(tmp_path):
     outdir = tmp_path / "pngs"
     assert cli.main(["decode-video", str(mhvt), str(outdir), "--streaming",
                      "--backend", "native"]) == 0
-    from metalhuffman_tpu.utils import imageio
+    from metalhuffman.utils import imageio
 
     got = np.stack([imageio.load_grayscale(outdir / f"frame_{i:05d}.png")
                     for i in range(10)])
@@ -611,7 +611,7 @@ def test_cli_streaming_decode_mhvt(tmp_path):
 
 
 def test_cli_streaming_decode_mhvt_color_and_short_first_group(tmp_path):
-    from metalhuffman_tpu import cli
+    from metalhuffman import cli
 
     cframes = _color_frames(7, 16, 16, seed=37)
     src = tmp_path / "c.npy"
@@ -639,10 +639,10 @@ def test_streaming_iterators_on_device_backend():
     """The chunked readers ride the device (interpret) pipeline too —
     StreamingDecoder submit/result for MHV2 chunks, the jitted fold for
     MHVT chunks — not just the native path the other tests use."""
-    from metalhuffman_tpu.models import temporal
+    from metalhuffman.models import temporal
 
     frames = _frames(6, 16, 24, seed=47)
-    dcfg = CodecConfig(backend="pallas", interpret=True)
+    dcfg = CodecConfig(backend="pallas")
     sink = io.BytesIO()
     with StreamingEncoder(sink, 16, 24, CodecConfig(),
                           max_segment_frames=2) as enc:
@@ -662,7 +662,7 @@ def test_streaming_iterators_on_device_backend():
 
 def test_cli_verify_streaming(tmp_path):
     """verify --streaming: the full integrity chain at constant memory."""
-    from metalhuffman_tpu import cli
+    from metalhuffman import cli
 
     frames = _frames(6, 24, 32, seed=45)
     src = tmp_path / "f.npy"
@@ -703,7 +703,7 @@ def test_cli_verify_streaming(tmp_path):
 
 def test_streamed_file_serves_every_reader_surface(tmp_path):
     """info/verify/random access treat a streamed MHV2 like any other."""
-    from metalhuffman_tpu import cli
+    from metalhuffman import cli
 
     frames = _frames(5, 24, 24, seed=11)
     path = tmp_path / "s.mhv2"
@@ -759,7 +759,7 @@ def test_push_validation_error_keeps_stream_usable(tmp_path):
 
 
 def test_color_push_failure_removes_mhtc_header(tmp_path, monkeypatch):
-    from metalhuffman_tpu.models.stream_writer import ColorStreamingEncoder
+    from metalhuffman.models.stream_writer import ColorStreamingEncoder
 
     rng = np.random.default_rng(3)
     frames = rng.integers(0, 256, (4, 16, 16, 3), dtype=np.uint8)
@@ -780,8 +780,8 @@ def test_failed_streaming_decode_removes_stale_frames(tmp_path):
     """A failed streaming decode into an image directory must remove EVERY
     frame_*.png there — stale frames from a previous (longer) run would
     otherwise masquerade as a complete good decode (round-4 advice)."""
-    from metalhuffman_tpu import cli
-    from metalhuffman_tpu.utils import imageio
+    from metalhuffman import cli
+    from metalhuffman.utils import imageio
 
     frames = _frames(6, 16, 16, seed=37)
     src = tmp_path / "f.npy"
@@ -810,7 +810,7 @@ def test_color_push_after_close_preserves_container(tmp_path):
     """Round-5 review finding: a push() after a successful close() must
     raise WITHOUT tripping the abort wrapper (which would truncate the
     finalized container — silent data loss on file-object sinks)."""
-    from metalhuffman_tpu.models.stream_writer import ColorStreamingEncoder
+    from metalhuffman.models.stream_writer import ColorStreamingEncoder
 
     rng = np.random.default_rng(5)
     frames = rng.integers(0, 200, (3, 16, 16, 3)).astype(np.uint8)

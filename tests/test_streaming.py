@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from metalhuffman_tpu import native
-from metalhuffman_tpu.models import CodecConfig, frame_stream
+from metalhuffman import native
+from metalhuffman.models import CodecConfig, frame_stream
 
 
 def _frames(t, h, w, seed):
@@ -12,7 +12,7 @@ def _frames(t, h, w, seed):
 
 
 def test_streaming_decoder_two_in_flight():
-    cfg = CodecConfig(backend="pallas", interpret=True)
+    cfg = CodecConfig(backend="pallas")
     dec = frame_stream.StreamingDecoder(cfg)
     batches = [_frames(2, 16, 1024, s) for s in range(3)]  # image-layout path
     streams = [frame_stream.encode_frames_shared(b, cfg) for b in batches]
@@ -28,7 +28,7 @@ def test_streaming_decoder_two_in_flight():
 
 
 def test_streaming_decoder_generic_path():
-    cfg = CodecConfig(backend="pallas", interpret=True)
+    cfg = CodecConfig(backend="pallas")
     dec = frame_stream.StreamingDecoder(cfg)
     b = _frames(2, 24, 40, 9)  # width not a multiple of 1024 -> generic path
     s = frame_stream.encode_frames_shared(b, cfg)

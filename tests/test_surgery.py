@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-import metalhuffman_tpu as mh
-from metalhuffman_tpu.models import CodecConfig, frame_stream, surgery, temporal
-from metalhuffman_tpu.models import color as color_mod
+import metalhuffman as mh
+from metalhuffman.models import CodecConfig, frame_stream, surgery, temporal
+from metalhuffman.models import color as color_mod
 
 CPU = CodecConfig(backend="native")
 
@@ -132,7 +132,7 @@ def test_extract_equals_reencode_payload():
 
 
 def test_cli_extract_concat(tmp_path):
-    from metalhuffman_tpu.cli import main
+    from metalhuffman.cli import main
 
     frames = _frames(t=6)
     src = tmp_path / "v.npy"
@@ -311,7 +311,7 @@ def test_concat_mhtv_with_mhv2():
 
 
 def test_cli_extract_midgroup_and_crc_note(tmp_path, capsys):
-    from metalhuffman_tpu.cli import main
+    from metalhuffman.cli import main
 
     frames = _frames(t=10)
     src = tmp_path / "v.npy"
@@ -412,7 +412,7 @@ def test_resegment_color_u16_temporal():
 
 def test_resegment_serves_streaming_decode(tmp_path):
     """The use-case: a monolithic archive becomes streamed-decodable."""
-    from metalhuffman_tpu import cli
+    from metalhuffman import cli
 
     frames = _frames(9)
     src = tmp_path / "f.npy"
@@ -497,7 +497,7 @@ def test_streamed_concat_color_and_refusals(tmp_path):
 
 
 def test_streamed_concat_cli(tmp_path):
-    from metalhuffman_tpu import cli
+    from metalhuffman import cli
 
     frames = _frames(6)
     src = tmp_path / "f.npy"

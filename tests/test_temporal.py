@@ -8,8 +8,8 @@ import zlib
 import numpy as np
 import pytest
 
-import metalhuffman_tpu as mh
-from metalhuffman_tpu.models import CodecConfig, temporal
+import metalhuffman as mh
+from metalhuffman.models import CodecConfig, temporal
 
 
 def _video(t=11, h=40, w=48, seed=0, motion=4):
@@ -106,7 +106,7 @@ def test_mhvt_roundtrip_color_and_subgreen():
     assert blob[:4] == temporal.TEMPORAL_MAGIC
     assert np.array_equal(mh.decode_color_video(blob, CPU), frames)
     # explicit colorspace composes with the temporal wrapper
-    from metalhuffman_tpu.models import color
+    from metalhuffman.models import color
 
     blob2 = temporal.encode_temporal_color_video(
         frames, cfg, colorspace=color.CS_SUBGREEN)
@@ -127,7 +127,7 @@ def test_mhvt_roundtrip_gray16():
 def test_mhvt_segmented_inner():
     # a tiny max_segment_bits forces MHV2 inside the wrapper — exercised
     # through the normal decode path
-    from metalhuffman_tpu.models import frame_stream
+    from metalhuffman.models import frame_stream
 
     frames = _video(t=6, h=24, w=32)
     res = temporal.temporal_encode(frames, 2)
@@ -354,7 +354,7 @@ def test_corrupt_motion_table_caught():
 
 
 def _run_cli(argv):
-    from metalhuffman_tpu.cli import main
+    from metalhuffman.cli import main
 
     return main(argv)
 
@@ -570,7 +570,7 @@ def test_device_raw_strips_segmented_inner():
     # MHV2 segments split at frame counts that are NOT keyint multiples:
     # the device path must concatenate segment strips BEFORE the group
     # fold (groups straddle segment boundaries)
-    from metalhuffman_tpu.models import frame_stream
+    from metalhuffman.models import frame_stream
 
     frames = _video(t=7, h=16, w=512)
     res = temporal.temporal_encode(frames, 3)
@@ -593,7 +593,7 @@ def test_device_motion_and_color_and_u16():
         backend="native", temporal=True, motion=True, keyint=3))
     assert np.array_equal(temporal.decode_temporal_video(blob, DEV), frames)
     # color + sub-green + MC
-    from metalhuffman_tpu.models import color as color_mod
+    from metalhuffman.models import color as color_mod
 
     rng = np.random.default_rng(3)
     base = rng.integers(0, 256, (20, 24, 3), np.uint8)
@@ -696,7 +696,7 @@ def test_sample_indices_never_alias_with_keyint():
 def test_inner_config_clears_frame_crcs():
     # the MHVT wrapper records the per-TRUE-frame table; the inner residual
     # stream must not duplicate it (4 B/frame documented cost)
-    from metalhuffman_tpu.models import frame_stream
+    from metalhuffman.models import frame_stream
 
     frames = _video(t=6)
     cfg = CodecConfig(backend="native", temporal=True, keyint=3,
@@ -806,8 +806,8 @@ def test_roll_words_matches_np_roll():
 
 def test_mc_container_words_fold_path():
     """An exact-geometry MC container reconstructs through the packed-words
-    MC fold (w a multiple of 1024 so the ImagePlan pads nothing); padded
-    geometries keep the byte-image path — both bit-exact."""
+    MC fold (w a multiple of 8 so nothing is padded); padded geometries
+    take the padded roll (tests/test_words_folds.py) — both bit-exact."""
     rng = np.random.default_rng(43)
     base = rng.integers(0, 256, (16, 1024), np.uint8)
     frames = np.stack([np.roll(base, (3 * i, -7 * i), axis=(0, 1))
@@ -820,7 +820,7 @@ def test_mc_container_words_fold_path():
     np.testing.assert_array_equal(
         temporal.decode_temporal_video(blob, CodecConfig()), frames)
     # a phased extract of the same container folds correctly too
-    from metalhuffman_tpu.models import surgery
+    from metalhuffman.models import surgery
 
     part = surgery.extract_video(blob, 2, 7)
     np.testing.assert_array_equal(

@@ -22,8 +22,8 @@ import zlib
 import numpy as np
 import pytest
 
-from metalhuffman_tpu.models import CodecConfig, color, frame_stream, temporal
-from metalhuffman_tpu.models.stream_writer import (
+from metalhuffman.models import CodecConfig, color, frame_stream, temporal
+from metalhuffman.models.stream_writer import (
     ColorStreamingEncoder,
     StreamingEncoder,
     TemporalStreamingEncoder,
@@ -92,7 +92,7 @@ def test_trailer_and_header_layouts_unwrap_identically():
     cfg = CodecConfig(backend="native", temporal=True, motion=True,
                       keyint=3)
     res, mvs = temporal.temporal_encode_mc(frames, 3)
-    from metalhuffman_tpu import encode_video
+    from metalhuffman import encode_video
 
     inner = encode_video(res, temporal._inner_config(cfg))
     fcrcs = frame_stream.compute_frame_crcs(frames)
@@ -141,7 +141,7 @@ def test_device_backend_reads_trailer_layout():
                       keyint=4)
     blob, _ = _stream_gray(frames, cfg, 4, [8])
     out = temporal.decode_temporal_video(
-        blob, CodecConfig(backend="pallas", interpret=True))
+        blob, CodecConfig(backend="pallas"))
     np.testing.assert_array_equal(out, frames)
 
 
@@ -197,7 +197,7 @@ def test_color_and_u16_byte_identity_and_roundtrip():
 
 
 def test_surgery_reads_trailer_layout():
-    from metalhuffman_tpu.models import surgery
+    from metalhuffman.models import surgery
 
     frames = _frames(12, 32, 32, seed=13)
     cfg = CodecConfig(backend="native", temporal=True, keyint=4)
@@ -316,7 +316,7 @@ def test_validation_before_state_change():
 
 
 def test_cli_streaming_temporal_roundtrip_and_verify(tmp_path):
-    from metalhuffman_tpu import cli
+    from metalhuffman import cli
 
     frames = _frames(10, 32, 32, seed=31, pan=4)
     src = tmp_path / "f.npy"
@@ -360,7 +360,7 @@ def test_cli_streaming_temporal_roundtrip_and_verify(tmp_path):
 
 
 def test_cli_streaming_temporal_color_u16(tmp_path):
-    from metalhuffman_tpu import cli
+    from metalhuffman import cli
 
     rng = np.random.default_rng(37)
     col = (rng.integers(0, 40, (8, 24, 24, 3))
@@ -396,8 +396,8 @@ def test_cli_streaming_temporal_color_u16(tmp_path):
 def test_verify_streaming_refuses_checkless_mhvt(tmp_path):
     """Round-5 review finding: an MHVT recording neither CRC must not
     PASS a streamed verify that checked nothing."""
-    from metalhuffman_tpu import cli
-    from metalhuffman_tpu import encode_video
+    from metalhuffman import cli
+    from metalhuffman import encode_video
 
     frames = _frames(4, 16, 16, seed=41)
     cfg = CodecConfig(backend="native")

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-import metalhuffman_tpu as mht
-from metalhuffman_tpu.models import CodecConfig
+import metalhuffman as mht
+from metalhuffman.models import CodecConfig
 
 
 def test_image_api():

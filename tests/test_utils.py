@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from metalhuffman_tpu.models import CodecConfig, ImageCodec
-from metalhuffman_tpu.utils import fixtures, imageio
+from metalhuffman.models import CodecConfig, ImageCodec
+from metalhuffman.utils import fixtures, imageio
 
 
 @pytest.mark.parametrize("config", fixtures.SMALL_CONFIGS)
@@ -30,7 +30,7 @@ def test_real_photo_512_roundtrip(backend):
     img = fixtures.render_frame("bridge_512")
     assert img.shape == (512, 512)
     ImageCodec(CodecConfig(
-        backend=backend, interpret=backend == "pallas")).roundtrip_verify(img)
+        backend=backend)).roundtrip_verify(img)
 
 
 @pytest.mark.slow
@@ -93,7 +93,7 @@ def test_tga_reader(tmp_path):
 def test_profiler_trace_context(tmp_path):
     import jax.numpy as jnp
 
-    from metalhuffman_tpu.utils import profiling
+    from metalhuffman.utils import profiling
 
     with profiling.trace(str(tmp_path / "trace")) as d:
         float(jnp.sum(jnp.ones((8, 8))))
@@ -101,7 +101,7 @@ def test_profiler_trace_context(tmp_path):
 
 
 def test_timer_and_time_fn():
-    from metalhuffman_tpu.utils import profiling
+    from metalhuffman.utils import profiling
 
     t = profiling.Timer("x")
     with t:
@@ -112,3 +112,92 @@ def test_timer_and_time_fn():
     dt, gbps = profiling.time_fn(lambda x: x + 1, np.float32(1), iters=2, warmup=1,
                                  payload_bytes=100)
     assert dt > 0 and gbps > 0
+
+
+# -- PNG without PIL (the zlib reader/writer) ---------------------------------
+
+
+def _png_with_filter(img, kind, path):
+    """Write ``img`` as a PNG whose every row uses filter ``kind`` (0-4),
+    so the reader's five unfilter paths are each exercised."""
+    import struct
+    import zlib
+
+    h, w = img.shape[:2]
+    c = 1 if img.ndim == 2 else img.shape[2]
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[c]
+    rows = img.reshape(h, w * c).astype(np.int64)
+    out = []
+    for y in range(h):
+        x = rows[y]
+        up = rows[y - 1] if y else np.zeros_like(x)
+        left = np.concatenate([np.zeros(c, np.int64), x[:-c]])
+        ul = np.concatenate([np.zeros(c, np.int64), up[:-c]])
+        if kind == 0:
+            pred = 0
+        elif kind == 1:
+            pred = left
+        elif kind == 2:
+            pred = up
+        elif kind == 3:
+            pred = (left + up) >> 1
+        else:
+            p = left + up - ul
+            pa, pb, pc = abs(p - left), abs(p - up), abs(p - ul)
+            pred = np.where((pa <= pb) & (pa <= pc), left,
+                            np.where(pb <= pc, up, ul))
+        out.append(bytes([kind]) + ((x - pred) & 0xFF).astype(np.uint8).tobytes())
+
+    def chunk(t, body):
+        return (struct.pack(">I", len(body)) + t + body
+                + struct.pack(">I", zlib.crc32(t + body)))
+
+    path.write_bytes(
+        b"\x89PNG\r\n\x1a\n"
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(b"".join(out)))
+        + chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3, 4])
+@pytest.mark.parametrize("kind", [0, 1, 2, 3, 4])
+def test_png_reader_matches_pil(tmp_path, kind, channels):
+    from PIL import Image
+
+    rng = np.random.default_rng(10 * kind + channels)
+    shape = (13, 17) if channels == 1 else (13, 17, channels)
+    img = rng.integers(0, 256, shape, np.uint8)
+    path = tmp_path / "f.png"
+    _png_with_filter(img, kind, path)
+    got = imageio.read_png(path)
+    np.testing.assert_array_equal(got, img)
+    np.testing.assert_array_equal(got, np.asarray(Image.open(path)))
+
+
+@pytest.mark.parametrize("asset", ["bridge_512x512.png", "bridge_2048x1536.png"])
+def test_png_fallback_loads_assets_like_pil(asset, monkeypatch):
+    from pathlib import Path
+
+    path = Path(__file__).parent / "assets" / asset
+    ref = imageio.load_grayscale(path)  # through PIL
+    monkeypatch.setattr(imageio, "_pil_image", lambda: None)
+    np.testing.assert_array_equal(imageio.load_grayscale(path), ref)
+
+
+def test_png_fallback_color_and_writer(tmp_path, monkeypatch):
+    from PIL import Image
+
+    rng = np.random.default_rng(3)
+    rgb = rng.integers(0, 256, (9, 11, 3), np.uint8)
+    gray_ref = np.asarray(Image.fromarray(rgb, mode="RGB").convert("L"))
+    monkeypatch.setattr(imageio, "_pil_image", lambda: None)
+    imageio.save_color(rgb, tmp_path / "c.png")
+    np.testing.assert_array_equal(imageio.load_color(tmp_path / "c.png"), rgb)
+    # PIL's own luma conversion, in the same integer arithmetic
+    np.testing.assert_array_equal(
+        imageio.load_grayscale(tmp_path / "c.png"), gray_ref)
+    imageio.save_grayscale(gray_ref, tmp_path / "g.png")
+    np.testing.assert_array_equal(
+        np.asarray(Image.open(tmp_path / "g.png")), gray_ref)
+    with pytest.raises(ImportError, match="Pillow"):
+        imageio.load_grayscale(tmp_path / "x.jpg")

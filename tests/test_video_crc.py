@@ -11,9 +11,9 @@ streaming analog of the reference's byte-for-byte decode verify
 import numpy as np
 import pytest
 
-import metalhuffman_tpu as mht
-from metalhuffman_tpu.models import frame_stream
-from metalhuffman_tpu.models.image_codec import CodecConfig
+import metalhuffman as mht
+from metalhuffman.models import frame_stream
+from metalhuffman.models.image_codec import CodecConfig
 
 
 def _frames(t, h, w, seed=0):
@@ -30,7 +30,7 @@ def _length_preserving_corruption(stream):
     code of that width. We brute-force a byte whose flip keeps every
     block boundary intact but changes decoded output.
     """
-    from metalhuffman_tpu.core import tables, decode_ref
+    from metalhuffman.core import tables, decode_ref
 
     sp, wp = tables.build_single_table(stream.widths)
     offs = stream.block_offsets.astype(np.int64)
@@ -69,7 +69,7 @@ def _length_preserving_corruption(stream):
 
 def test_mhtv_crc_recorded_and_verified():
     frames = _frames(3, 16, 32, seed=1)
-    cfg = CodecConfig(interpret=True)
+    cfg = CodecConfig()
     blob = mht.encode_video(frames, cfg)
     assert blob[:4] == frame_stream.SHARED_MAGIC
     assert frame_stream.source_crc32(blob) != 0
@@ -78,7 +78,7 @@ def test_mhtv_crc_recorded_and_verified():
 
 def test_mhtv_crc_catches_length_preserving_corruption():
     frames = _frames(3, 16, 32, seed=2)
-    cfg = CodecConfig(interpret=True)
+    cfg = CodecConfig()
     blob = mht.encode_video(frames, cfg)
     stream, t, h, w, bd, delta = frame_stream.read_shared(blob)
 
@@ -98,7 +98,7 @@ def test_mhtv_crc_catches_length_preserving_corruption():
 
 def test_mhtv_pre_trailer_container_parses_as_unrecorded():
     frames = _frames(2, 16, 16, seed=3)
-    cfg = CodecConfig(interpret=True)
+    cfg = CodecConfig()
     stream = frame_stream.encode_frames_shared(frames, cfg)
     legacy = frame_stream.write_shared(stream, 2, 16, 16, cfg)[:-4]
     assert frame_stream.source_crc32(legacy) == 0
@@ -110,7 +110,7 @@ def test_mhtv_pre_trailer_container_parses_as_unrecorded():
 
 def test_mhv2_crc_trailer():
     frames = _frames(4, 16, 32, seed=4)
-    cfg = CodecConfig(interpret=True)
+    cfg = CodecConfig()
     segs = frame_stream.encode_frames_segmented(
         frames, cfg, max_segment_bits=2 * 16 * 32 * 16)
     assert len(segs) >= 2
@@ -130,7 +130,7 @@ def test_mhts_per_frame_crcs():
     import zlib
 
     frames = _frames(3, 16, 16, seed=5)
-    cfg = CodecConfig(interpret=True)
+    cfg = CodecConfig()
     streams = frame_stream.encode_frames(frames, cfg)
     crcs = [zlib.crc32(f.tobytes()) for f in frames]
     blob = frame_stream.write_stream(streams, 16, 16, cfg, source_crc32s=crcs)
@@ -140,7 +140,7 @@ def test_mhts_per_frame_crcs():
 
 
 def test_cli_decode_video_verifies_crc(tmp_path):
-    from metalhuffman_tpu import cli
+    from metalhuffman import cli
 
     frames = _frames(2, 16, 16, seed=6)
     src = tmp_path / "f.npy"
@@ -167,11 +167,11 @@ def test_cli_decode_video_verifies_crc(tmp_path):
 
 
 def test_color_roundtrip_crc():
-    from metalhuffman_tpu.models import color
+    from metalhuffman.models import color
 
     rng = np.random.default_rng(7)
     img = rng.integers(0, 256, (24, 32, 3), np.uint8)
-    cfg = CodecConfig(interpret=True)
+    cfg = CodecConfig()
     blob = color.encode_color_to_bytes(img, cfg)
     # the CRC trailer lives in the inner plane container of the MHTC wrapper
     assert frame_stream.source_crc32(color.unwrap(blob)[0]) != 0
@@ -182,8 +182,8 @@ def test_color_roundtrip_crc():
 
 
 def test_cli_verify_mht1(tmp_path, capsys):
-    from metalhuffman_tpu import cli
-    from metalhuffman_tpu.utils import imageio
+    from metalhuffman import cli
+    from metalhuffman.utils import imageio
 
     rng = np.random.default_rng(8)
     img = rng.normal(100, 30, (32, 48)).clip(0, 255).astype(np.uint8)
@@ -210,7 +210,7 @@ def test_cli_verify_mht1(tmp_path, capsys):
 
 
 def test_cli_verify_mhtv_and_corruption(tmp_path, capsys):
-    from metalhuffman_tpu import cli
+    from metalhuffman import cli
 
     frames = _frames(2, 16, 32, seed=9)
     src = tmp_path / "f.npy"
@@ -238,7 +238,7 @@ def test_cli_verify_mhtv_and_corruption(tmp_path, capsys):
 
 
 def test_cli_verify_mhts(tmp_path, capsys):
-    from metalhuffman_tpu import cli
+    from metalhuffman import cli
 
     frames = _frames(2, 16, 16, seed=10)
     src = tmp_path / "f.npy"
@@ -290,7 +290,7 @@ def test_fcrc_tamper_caught_by_range_decode():
 
 
 def test_mhvt_frame_crcs_random_access():
-    from metalhuffman_tpu.models import temporal
+    from metalhuffman.models import temporal
 
     rng = np.random.default_rng(5)
     base = rng.integers(0, 256, (24, 32), np.uint8)
@@ -322,7 +322,7 @@ def test_mhvt_frame_crcs_random_access():
 
 
 def test_cli_frame_crcs_check(tmp_path):
-    from metalhuffman_tpu.cli import main
+    from metalhuffman.cli import main
 
     frames = _frames(5, 24, 32)
     src = tmp_path / "v.npy"

@@ -14,11 +14,11 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from metalhuffman_tpu.models import CodecConfig, temporal  # noqa: E402
-from metalhuffman_tpu.models import color as color_mod  # noqa: E402
+from metalhuffman.models import CodecConfig, temporal  # noqa: E402
+from metalhuffman.models import color as color_mod  # noqa: E402
 
 NATIVE = CodecConfig(backend="native")
-DEV = CodecConfig(backend="pallas", interpret=True)
+DEV = CodecConfig(backend="pallas")
 
 
 def _pack_words(img, rows_pf, w_pad):
@@ -125,8 +125,8 @@ def _clip(kind, t, h, w, seed, pan=0):
 def test_device_fold_chain_every_kind(kind, motion, geometry):
     """The full _decode_temporal_device chain (interpret backend) against
     the host reconstruction, for every production fold combination."""
-    # padded: width not a multiple of the lane tile -> pad columns; odd
-    # height -> pad rows. exact: (16, 512)-style strip-aligned geometry.
+    # padded: width not a multiple of 8 -> pad columns; odd height -> pad
+    # rows. exact: (16, 512), nothing padded.
     h, w = (16, 512) if geometry == "exact" else (13, 500)
     t = 9
     frames = _clip(kind, t, h, w, seed=7, pan=6 if motion else 0)
@@ -149,7 +149,7 @@ def test_device_fold_chain_every_kind(kind, motion, geometry):
 def test_device_fold_short_first_group():
     """Arbitrary-start extraction's short first group rides the new
     packed folds too (front-padding)."""
-    from metalhuffman_tpu.models import surgery
+    from metalhuffman.models import surgery
 
     frames = _clip("color", 11, 13, 100, seed=9)
     cfg = CodecConfig(backend="native", temporal=True, keyint=4)

@@ -6,9 +6,9 @@ here as a mod-256 block add — kernel-agnostic)."""
 import numpy as np
 import pytest
 
-from metalhuffman_tpu.core import delta
-from metalhuffman_tpu.models import CodecConfig, ImageCodec
-from metalhuffman_tpu.utils import fixtures
+from metalhuffman.core import delta
+from metalhuffman.models import CodecConfig, ImageCodec
+from metalhuffman.utils import fixtures
 
 
 def test_split_apply_inverse():
@@ -26,8 +26,7 @@ def test_split_apply_inverse():
 @pytest.mark.parametrize("backend", ["native", "xla", "pallas"])
 def test_roundtrip_zero_init(backend):
     img = fixtures.render_frame("bridge_512")
-    cfg = CodecConfig(backend=backend, zero_init=True,
-                      interpret=backend == "pallas")
+    cfg = CodecConfig(backend=backend, zero_init=True)
     codec = ImageCodec(cfg)
     stream = codec.encode(img)
     assert stream.block_init is not None
@@ -80,11 +79,11 @@ def _frames(t, h, w, seed=0):
 
 def test_shared_zero_init_mhtv_roundtrip():
     """Zero-init over a shared-table batch, serialized via MHTV mode byte 2."""
-    import metalhuffman_tpu as mht
-    from metalhuffman_tpu.models import frame_stream
+    import metalhuffman as mht
+    from metalhuffman.models import frame_stream
 
     frames = _frames(4, 24, 40, seed=5)
-    cfg = CodecConfig(zero_init=True, interpret=True)
+    cfg = CodecConfig(zero_init=True)
     blob = mht.encode_video(frames, cfg)
     assert blob[:4] == frame_stream.SHARED_MAGIC
     stream, t, h, w, bd, delta = frame_stream.read_shared(blob)
@@ -94,7 +93,7 @@ def test_shared_zero_init_mhtv_roundtrip():
     wide = _frames(2, 16, 1024, seed=6)
     s_w = frame_stream.encode_frames_shared(wide, cfg)
     prep = frame_stream.prepare_shared(s_w, 2, 16, 1024, cfg)
-    assert prep.h2 and prep.init_grid is not None
+    assert prep.init_grid is not None
     with pytest.raises(ValueError, match="raw"):
         frame_stream.decode_shared_step(prep, cfg, raw=True)
     np.testing.assert_array_equal(
@@ -102,10 +101,10 @@ def test_shared_zero_init_mhtv_roundtrip():
 
 
 def test_segmented_zero_init_mhv2_roundtrip():
-    from metalhuffman_tpu.models import frame_stream
+    from metalhuffman.models import frame_stream
 
     frames = _frames(4, 24, 40, seed=7)
-    cfg = CodecConfig(zero_init=True, interpret=True)
+    cfg = CodecConfig(zero_init=True)
     segs = frame_stream.encode_frames_segmented(
         frames, cfg, max_segment_bits=24 * 40 * 16)
     assert len(segs) > 1
@@ -123,7 +122,7 @@ def test_segmented_zero_init_mhv2_roundtrip():
 
 def test_batch_zero_init_xla():
     """MHTS batched XLA decode must fold block_init (round-2 review fix)."""
-    from metalhuffman_tpu.models import frame_stream
+    from metalhuffman.models import frame_stream
 
     frames = _frames(4, 24, 40, seed=8)
     cfg = CodecConfig(zero_init=True, backend="xla")
@@ -135,10 +134,10 @@ def test_batch_zero_init_xla():
 
 
 def test_checked_decode_zero_init_folds():
-    from metalhuffman_tpu.models import frame_stream
+    from metalhuffman.models import frame_stream
 
     frames = _frames(3, 24, 40, seed=9)
-    cfg = CodecConfig(zero_init=True, interpret=True)
+    cfg = CodecConfig(zero_init=True)
     stream = frame_stream.encode_frames_shared(frames, cfg)
     prep = frame_stream.prepare_shared(stream, 3, 24, 40, cfg, check=True)
     out, err = frame_stream.decode_shared_step_checked(prep, cfg)
